@@ -1,10 +1,9 @@
-"""qwen3tts_tpu — a TPU-native (JAX/XLA/Pallas) Qwen3-TTS inference framework.
+"""qwen3tts_tpu — a JAX (XLA + Pallas) Qwen3-TTS inference framework.
 
 A from-scratch rebuild of the capabilities of the reference CPU/Metal C++
-engine (clawd20130/qwen3-tts.cpp), designed TPU-first: one jitted program per
-pipeline stage, the entire autoregressive frame loop on device, weights as
-pytrees, Pallas kernels on the hot decode path, and named-axis sharding for
-multi-chip scale-out.
+engine (clawd20130/qwen3-tts.cpp): one jitted program per pipeline stage, the
+entire autoregressive frame loop on device, weights as pytrees, and
+named-axis sharding for multi-device scale-out.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,5 @@
 """qwen3-tts CLI — same flag surface as the reference binary
-(src/main.cpp:7-27), TPU-backed.
+(src/main.cpp:7-27), running on JAX.
 
     python -m qwen3tts_tpu.cli -m <model_dir> -t "Hello, world!" -o out.wav
     python -m qwen3tts_tpu.cli -m <model_dir> -t "Hello!" -r ref.wav -o c.wav
@@ -22,7 +22,7 @@ from .pipeline import LANGUAGE_IDS, Qwen3TTS, save_wav
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
-        prog="qwen3-tts", description="Qwen3-TTS text-to-speech on TPU (JAX/XLA/Pallas)")
+        prog="qwen3-tts", description="Qwen3-TTS text-to-speech (JAX)")
     p.add_argument("-m", "--model", default=None, help="Model directory (HF checkpoints)")
     p.add_argument("-t", "--text", required=True, help="Text to synthesize")
     p.add_argument("-o", "--output", default="output.wav", help="Output WAV file")
@@ -41,8 +41,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Weight quantization (int8 = Q8_0-parity serving mode; "
                         "q4 = mixed attn-int8/ffn-4bit talker — higher quality "
                         "than the reference's Q4_K; q4pure = all-4bit talker, "
-                        "smallest/lossiest; all engage the fused Pallas "
-                        "decode kernels on TPU)")
+                        "smallest/lossiest)")
     p.add_argument("--synthetic", action="store_true",
                    help="Run with deterministic synthetic weights (no checkpoint needed)")
     p.add_argument("--progress", action="store_true", help="Print per-frame progress")

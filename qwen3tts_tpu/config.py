@@ -1,4 +1,4 @@
-"""Model / pipeline configuration for the TPU-native Qwen3-TTS framework.
+"""Model / pipeline configuration for the JAX Qwen3-TTS framework.
 
 Hyper-parameter values mirror the reference engine's configuration structs so a
 user of the reference can switch over without relearning anything:
@@ -186,7 +186,7 @@ class SamplingConfig:
 
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """TPU execution policy: dtypes and shape buckets (compile-cache keys)."""
+    """Execution policy: dtypes and shape buckets (compile-cache keys)."""
 
     # Parameter / activation compute dtype ("bfloat16" or "float32").
     dtype: str = "bfloat16"
@@ -212,12 +212,6 @@ class RuntimeConfig:
     # the full frame bucket, so it suits tight max-token budgets / serving;
     # the default split path vocodes a bucket sized to the ACTUAL frame count.
     fused_dispatch: bool = False
-    # KV-cache storage: "none" (cache at compute dtype) | "int8" (per-row
-    # quantized: halves the cache footprint and slab DMA of the fused HBM
-    # talker kernels — a MEMORY tier; the per-element int8 dequant cast
-    # currently offsets the DMA speedup, see pipeline.resolve_kv_quant) |
-    # "auto" (policy in resolve_kv_quant). Env override: QWEN3TTS_KV_INT8=1/0.
-    kv_quant: str = "auto"
 
 
 @dataclasses.dataclass(frozen=True)

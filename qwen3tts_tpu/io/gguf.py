@@ -4,7 +4,7 @@ The reference's weight format is GGUF (components #8/#10/#11, SURVEY.md §2):
 its loader streams tensors with fseek/fread (src/gguf_loader.cpp:154-227) and
 its converters emit F16/Q8_0 files with a selective-quantization policy
 (scripts/convert_tts_to_gguf.py:244-270). This module implements the same
-format from the spec so existing GGUF checkpoints load directly into the TPU
+format from the spec so existing GGUF checkpoints load directly into the JAX
 pipeline, and so the Q8_0 path has a bit-parity on-disk representation.
 
 Only the value/tensor types the Qwen3-TTS files use are implemented:

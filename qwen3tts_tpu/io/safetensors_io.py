@@ -1,7 +1,7 @@
 """Minimal zero-copy safetensors reader (pure NumPy, no torch).
 
 Replaces the reference's GGUF tensor streaming (src/gguf_loader.cpp:154-227)
-as the primary weight path: the TPU build loads HF checkpoints directly
+as the primary weight path: this build loads HF checkpoints directly
 (BASELINE.json north star: "weight loading moves from GGUF to a
 safetensors-to-JAX converter").
 """

@@ -3,7 +3,7 @@
 This is the public format contract documented in the reference's
 docs/tensor_mapping.md and implemented by its converters
 (scripts/convert_tts_to_gguf.py, scripts/convert_tokenizer_to_gguf.py).
-Implementing the same mapping keeps existing .gguf files loadable by the TPU
+Implementing the same mapping keeps existing .gguf files loadable by this
 framework and lets tools/convert_hf_to_gguf.py emit files the reference CLI
 can consume.
 """

@@ -1,7 +1,7 @@
 """The code predictor: 5-layer AR transformer emitting codebooks 1..15.
 
 Covers reference component #5's code-predictor half plus component #6 (the
-CoreML/ANE bridge): on TPU both collapse into one fused on-device routine —
+CoreML/ANE bridge): here both collapse into one fused on-device routine —
 a 2-token prefill followed by a ``lax.scan`` over 14 single-token steps with
 the per-step embedding tables and LM heads stacked along a step axis and
 gathered by step index (SURVEY.md §7 "the hard parts" #4).
@@ -81,7 +81,7 @@ def predict_codes(
     """AR-generate the 15 residual codes for one frame. Returns int32 [15].
 
     temperature/top_p may be traced scalars; greedy/use_top_p are static
-    stage gates (ops/kernel_prng.sampling_flags)."""
+    stage gates (ops/sampling.sampling_flags)."""
     ccfg = core_config(cfg)
     kv = jnp.zeros((cfg.n_layers, 2, cfg.n_kv_heads, cfg.max_ctx, cfg.head_dim), params.embds.dtype)
 

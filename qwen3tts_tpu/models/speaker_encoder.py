@@ -14,7 +14,7 @@ Covers reference component #4 (SURVEY.md §2; src/audio_tokenizer_encoder.cpp
       weighted mean/std -> concat 3072
   fc k=1 3072 -> 1024
 
-TPU-first: the whole network is one jitted function over a padded frame
+The whole network is one jitted function over a padded frame
 bucket; every spatial conv gathers its taps through dynamic reflection
 indices against the true frame count and every pooling/softmax is masked, so
 padding is numerically invisible (no per-length recompiles).

@@ -32,7 +32,7 @@ class BlockParams(NamedTuple):
 
     q/k/v and gate/up projections are FUSED along the output dim: the decode
     loop is dominated by many small GEMVs, and one [H, (Hq+2*Hkv)*D] matmul
-    streams weights from HBM far better than three (and removes per-op
+    streams weights from device memory far better than three (and removes per-op
     dispatch). The loader concatenates the HF tensors at load time; accessor
     properties recover the individual views for tests/tools.
     """
@@ -107,12 +107,11 @@ def _layer(params, cfg: CoreConfig, x, cos, sin, attend):
     return x, kv_out
 
 
-# Cache-update strategy threshold: at small capacities the xs/ys scheme's
-# per-layer cache copies are cheap (~0.13 GB/frame at C=512) and XLA
-# schedules it better (measured 3.1 vs 4.2 ms/frame); at large capacities the
-# copies dominate (~1 GB/frame at C=4352: 8.6 vs 4.4 ms/frame) and the
-# carry-threaded scheme with in-place updates + the layer-indexed Pallas
-# kernel wins. Chosen statically per compiled bucket.
+# Cache-update strategy threshold: the xs/ys ("sliced") scheme copies each
+# layer's cache slice per step (~0.13 GB/frame at C=512, ~1 GB/frame at
+# C=4352 in bf16), so large capacities take the carry-threaded scheme with
+# in-place updates and layer-indexed decode attention. Chosen statically per
+# compiled bucket.
 CARRY_THRESHOLD = 1024
 
 
@@ -194,8 +193,7 @@ def forward_step(
     strategy: "auto" picks sliced below CARRY_THRESHOLD slots and carried
     (in-place updates + layer-indexed attention) above; "carried"/"sliced"
     force it. Under vmap the sliced scheme's per-layer cache copies multiply
-    by the batch (measured 893 -> 2555 aggregate frames/s at B=16, C=512
-    just from forcing carried), so batched callers pass "carried".
+    by the batch, so batched callers pass "carried".
 
     `start` (scalar, optional): additionally mask cache positions < start —
     continuous-batching lanes splice a new request's prefill mid-cache and

@@ -26,7 +26,6 @@ whole stack is causal, so right-padding frames never corrupts valid samples.
 from __future__ import annotations
 
 import functools
-import os
 from typing import NamedTuple
 
 import jax
@@ -44,28 +43,24 @@ NEG_INF = -1e30  # plain float: no device allocation at import time
 # conv helpers (activations are [T, C]; weights are [K, In, Out])
 # ---------------------------------------------------------------------------
 
-def _conv_mm_enabled() -> bool:
-    """Matmul-form convs (default on): XLA's native 1-D conv lowering runs at
-    ~1% of the MXU roofline for the decoder stack's narrow-channel (192/96),
-    long-T shapes — measured 153 ms of the 162 ms vocoder forward at 256
-    frames. QWEN3TTS_CONV_MM=0 restores lax.conv for A/B."""
-    return os.environ.get("QWEN3TTS_CONV_MM", "1") not in ("0", "false", "off")
-
 
 def conv1d(x: jnp.ndarray, w: jnp.ndarray, b: jnp.ndarray | None, *,
            dilation: int = 1, groups: int = 1, causal: bool = True) -> jnp.ndarray:
     """1-D conv on [T, C] with causal left padding of dilation*(K-1).
 
-    Dense (groups=1) convs are computed as K accumulated MXU matmuls over
+    Dense (groups=1) convs are computed as K accumulated matmuls over
     shifted views: y[t] = sum_k xp[t + d*k] @ w[k] with xp the padded input.
-    (An earlier concat form — concat_k(shifted views) @ w.reshape(K*In, Out) —
-    measured the same single-stream but materialized a [B, T, K*In] tensor
-    under vmap: 28 GB at B=64/block-3 shapes. The tap-sum keeps the peak at
-    one f32 [.., T, Out] accumulator and vmaps into K clean batched matmuls.)
-    Grouped (depthwise) convs keep the lax.conv path."""
+    (A concat form — concat_k(shifted views) @ w.reshape(K*In, Out) —
+    materializes a [B, T, K*In] tensor under vmap: 28 GB at B=64/block-3
+    shapes. The tap-sum keeps the peak at
+    one f32 [.., T, Out] accumulator and vmaps into K clean batched matmuls.
+    On an H100 (400 W) the vocoder at 256 frames ran 24.7 ms with tap
+    matmuls against 41.5 ms with lax.conv at default precision, 57.4 against
+    266.3 ms at float32 precision — PERF.md.)
+    Grouped (depthwise) convs use lax.conv."""
     K = w.shape[0]
     pad = dilation * (K - 1)
-    if groups == 1 and _conv_mm_enabled():
+    if groups == 1:
         T = x.shape[0]
         lpad, rpad = (pad, 0) if causal else (pad // 2, pad - pad // 2)
         xp = jnp.pad(x, ((lpad, rpad), (0, 0)))
@@ -103,8 +98,8 @@ def conv_transpose1d(x: jnp.ndarray, w: jnp.ndarray, b: jnp.ndarray | None, *,
       - trim="causal": all from the right (Python ground truth) -> T*stride
       - trim="symmetric": split across both sides (C++ reference variant)
 
-    When K divides into stride taps (K = J*stride — true for every vocoder
-    convT: K=2r at stride r, K=2 at stride 2), the op is J accumulated MXU
+    K must divide into stride taps (K = J*stride — true for every vocoder
+    convT: K=2r at stride r, K=2 at stride 2); the op is then J accumulated
     matmuls: phase algebra gives y[q*s + p] = sum_j w[K-1-p-j*s] @ x[q-j], so
     sum_j shift(x, j) @ W2[j] with W2[j][i, p*Out + o] = w[K-1-p-j*s, i, o]
     computes all s phases at once and the [T, s*Out] -> [T*s, Out] reshape is
@@ -113,42 +108,27 @@ def conv_transpose1d(x: jnp.ndarray, w: jnp.ndarray, b: jnp.ndarray | None, *,
     K = w.shape[0]
     s = stride
     cut = K - s
-    if K % s == 0 and _conv_mm_enabled():
-        T, cin = x.shape
-        cout = w.shape[2]
-        J = K // s
-        # W2: flip K, group [J, s], move phase axis next to cout
-        w2 = (w[::-1].reshape(J, s, cin, cout)
-              .transpose(0, 2, 1, 3).reshape(J, cin, s * cout))
-        xp = jnp.pad(x, ((J - 1, 0), (0, 0)))
-        acc = jax.lax.dot_general(
-            xp[J - 1:], w2[0], (((1,), (0,)), ((), ())),
+    assert K % s == 0, f"kernel {K} is not a multiple of stride {s}"
+    T, cin = x.shape
+    cout = w.shape[2]
+    J = K // s
+    # W2: flip K, group [J, s], move phase axis next to cout
+    w2 = (w[::-1].reshape(J, s, cin, cout)
+          .transpose(0, 2, 1, 3).reshape(J, cin, s * cout))
+    xp = jnp.pad(x, ((J - 1, 0), (0, 0)))
+    acc = jax.lax.dot_general(
+        xp[J - 1:], w2[0], (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32)
+    for j in range(1, J):
+        acc = acc + jax.lax.dot_general(
+            xp[J - 1 - j: xp.shape[0] - j], w2[j],
+            (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32)
-        for j in range(1, J):
-            acc = acc + jax.lax.dot_general(
-                xp[J - 1 - j: xp.shape[0] - j], w2[j],
-                (((1,), (0,)), ((), ())),
-                preferred_element_type=jnp.float32)
-        y = acc.astype(x.dtype).reshape(T * s, cout)
-        # raw convT output is length T*s + cut; rows [T*s, T*s+cut) only
-        # receive taps k >= s of x[T-1] and are trimmed under both modes
-        if trim == "causal":
-            pass                       # keep [0, T*s)
-        elif cut > 0:
-            y = y[cut:]                # symmetric: also drop the left edge
-    else:
-        y = lax.conv_general_dilated(
-            x[None], w,
-            window_strides=(1,),
-            padding=[(K - 1, K - 1)],
-            lhs_dilation=(stride,),
-            dimension_numbers=("NWC", "WIO", "NWC"),
-        )[0]
-        if cut > 0:
-            if trim == "causal":
-                y = y[: y.shape[0] - cut]
-            else:
-                y = y[cut: y.shape[0] - cut]
+    y = acc.astype(x.dtype).reshape(T * s, cout)
+    # raw convT output is length T*s + cut; rows [T*s, T*s+cut) only
+    # receive taps k >= s of x[T-1] and are trimmed under both modes
+    if trim == "symmetric" and cut > 0:
+        y = y[cut:]                    # also drop the left edge
     if b is not None:
         y = y + b
     return y
@@ -353,49 +333,19 @@ def _convnext_block(x: jnp.ndarray, p, i: int, trim: str) -> jnp.ndarray:
     return residual + x
 
 
-def _padc(a: jnp.ndarray, n: int) -> jnp.ndarray:
-    """Zero-pad the last axis to width n (no-op when already there)."""
-    return a if a.shape[-1] == n else jnp.pad(
-        a, [(0, 0)] * (a.ndim - 1) + [(0, n - a.shape[-1])])
-
-
 def _residual_block(x: jnp.ndarray, res: ResBlockParams, i: int, dilation: int) -> jnp.ndarray:
-    """x may carry zero-padded channels beyond the weights' width (the fused
-    kernel path pads the decoder stack to 128-lane multiples; snake is
-    zero-preserving and padded weights are zero, so pad lanes stay zero)."""
-    from ..ops.pallas_vocoder import (
-        fused_res_block, fused_res_block_supported, fused_vocoder_enabled)
-
-    C = x.shape[-1]
-    w1 = _padc(jnp.pad(res.conv1_w[i], ((0, 0), (0, C - res.conv1_w.shape[-2]), (0, 0))), C) \
-        if C != res.conv1_w.shape[-1] else res.conv1_w[i]
-    w2 = _padc(jnp.pad(res.conv2_w[i], ((0, 0), (0, C - res.conv2_w.shape[-2]), (0, 0))), C) \
-        if C != res.conv2_w.shape[-1] else res.conv2_w[i]
-    b1, a1, be1 = (_padc(res.conv1_b[i], C), _padc(res.act1_alpha[i], C),
-                   _padc(res.act1_beta[i], C))
-    b2, a2, be2 = (_padc(res.conv2_b[i], C), _padc(res.act2_alpha[i], C),
-                   _padc(res.act2_beta[i], C))
-    if (fused_vocoder_enabled() and x.ndim == 2
-            and fused_res_block_supported(x.shape[0], C, dilation)):
-        return fused_res_block(x, w1, b1, a1, be1, w2, b2, a2, be2,
-                               dilation=dilation)
     r = x
-    x = snake(x, a1, be1)
-    x = conv1d(x, w1, b1, dilation=dilation, causal=True)
-    x = snake(x, a2, be2)
-    x = conv1d(x, w2, b2, causal=True)
+    x = snake(x, res.act1_alpha[i], res.act1_beta[i])
+    x = conv1d(x, res.conv1_w[i], res.conv1_b[i], dilation=dilation, causal=True)
+    x = snake(x, res.act2_alpha[i], res.act2_beta[i])
+    x = conv1d(x, res.conv2_w[i], res.conv2_b[i], causal=True)
     return r + x
 
 
 def _decoder_block(x: jnp.ndarray, blk: DecoderBlockParams, rate: int,
-                   dilations, trim: str, pad_cout: int = 0) -> jnp.ndarray:
-    cin = x.shape[-1]
-    x = snake(x, _padc(blk.snake_alpha, cin), _padc(blk.snake_beta, cin))
-    w = blk.convt_w
-    cout = w.shape[-1] + pad_cout
-    if cin != w.shape[-2] or pad_cout:
-        w = _padc(jnp.pad(w, ((0, 0), (0, cin - w.shape[-2]), (0, 0))), cout)
-    x = conv_transpose1d(x, w, _padc(blk.convt_b, cout), stride=rate, trim=trim)
+                   dilations, trim: str) -> jnp.ndarray:
+    x = snake(x, blk.snake_alpha, blk.snake_beta)
+    x = conv_transpose1d(x, blk.convt_w, blk.convt_b, stride=rate, trim=trim)
     for i, d in enumerate(dilations):
         x = _residual_block(x, blk.res, i, d)
     return x
@@ -429,25 +379,13 @@ def vocoder_forward(
     for i in range(cfg.n_convnext):
         x = _convnext_block(x, params.convnext, i, trim)
 
-    # Decoder stack. Under the fused res-block kernel the narrow blocks
-    # (192/96ch) carry zero-padded channels up to 128-lane multiples — padded
-    # end-to-end (convT writes them, the final conv's padded-zero weight rows
-    # consume them) so no per-op pad/slice traffic is added.
-    from ..ops.pallas_vocoder import fused_vocoder_enabled
-
-    pad_lanes = fused_vocoder_enabled() and x.ndim == 2
+    # Decoder stack.
     x = conv1d(x, params.dec0_w, params.dec0_b, causal=True)
     for blk, rate in zip(params.dec_blocks, cfg.upsample_rates):
-        cout = blk.convt_w.shape[-1]
-        pad_cout = (-cout) % 128 if pad_lanes else 0
-        x = _decoder_block(x, blk, rate, cfg.res_dilations, trim,
-                           pad_cout=pad_cout)
+        x = _decoder_block(x, blk, rate, cfg.res_dilations, trim)
 
-    C = x.shape[-1]
-    x = snake(x, _padc(params.final_alpha, C), _padc(params.final_beta, C))
-    out_w = jnp.pad(params.out_w, ((0, 0), (0, C - params.out_w.shape[-2]), (0, 0))) \
-        if C != params.out_w.shape[-2] else params.out_w
-    x = conv1d(x, out_w, params.out_b, causal=True)
+    x = snake(x, params.final_alpha, params.final_beta)
+    x = conv1d(x, params.out_w, params.out_b, causal=True)
     return jnp.tanh(x.astype(jnp.float32))[:, 0]
 
 

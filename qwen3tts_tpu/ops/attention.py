@@ -1,21 +1,70 @@
-"""GQA attention in plain XLA (prefill + single-token decode).
+"""GQA attention: prefill, and single-token decode over a KV cache.
 
-These are the portable reference paths; the Pallas fused decode kernel in
-``ops/pallas_attention.py`` is a drop-in replacement for ``decode_attention``
-on TPU. Semantics match the reference graphs:
+Semantics match the reference graphs:
 
 - scale 1/sqrt(head_dim), causal mask, softmax in f32
   (src/tts_transformer.cpp:1219-1226)
 - GQA with n_heads query heads sharing n_kv_heads KV heads (16/8 for the
   talker and code predictor; the vocoder pre-transformer is MHA 16/16).
+
+Decode attention has two implementations: the plain XLA einsum
+(``decode_attention``, the reference for every test) and the split-K Pallas
+kernel of ``ops/pallas_attention.py``. The choice depends on the platform and
+the cache shape alone: ``kernel_fits`` checks the shape at trace time, and
+``lax.platform_dependent`` lowers the kernel only for CUDA (every other
+platform lowers the einsum).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 import jax
 import jax.numpy as jnp
+from jax import lax
 
 NEG_INF = -1e30  # plain float: no device allocation at import time
+
+# The smallest capacity the kernel was measured at, where it already beat
+# the einsum (H100, 400 W: 0.39-0.44 against 0.46 ms for 28 layers single
+# stream, 0.63-1.32 against 3.54 ms at 16 lanes; PERF.md). Smaller caches
+# take the einsum until measured.
+MIN_KERNEL_CAPACITY = 1024
+
+# False while tracing a program whose operands span several devices:
+# pallas_call has no partitioning rule, so the einsum (which GSPMD
+# partitions) must run there. Set only through `kernel_allowed`.
+_KERNEL_ALLOWED = contextvars.ContextVar("decode_attention_kernel",
+                                         default=True)
+
+
+@contextlib.contextmanager
+def kernel_allowed(allowed: bool):
+    """Trace the enclosed code with the decode-attention kernel allowed or
+    not. Entry points that take multi-device operands set it from a static
+    argument, so the choice is part of the compiled program's key."""
+    token = _KERNEL_ALLOWED.set(bool(allowed))
+    try:
+        yield
+    finally:
+        _KERNEL_ALLOWED.reset(token)
+
+
+def kernel_fits(capacity: int, head_dim: int, n_heads: int,
+                n_kv_heads: int, dtype) -> bool:
+    """Whether a CUDA lowering may take the split-K kernel: caches of at
+    least MIN_KERNEL_CAPACITY rows whose shapes it tiles, outside
+    multi-device programs. Everything else takes the einsum."""
+    from .pallas_attention import BLOCK_K, GROUP_PAD
+
+    return (_KERNEL_ALLOWED.get()
+            and capacity >= MIN_KERNEL_CAPACITY
+            and capacity % BLOCK_K == 0
+            and head_dim >= 16 and head_dim & (head_dim - 1) == 0
+            and n_heads % n_kv_heads == 0
+            and n_heads // n_kv_heads <= GROUP_PAD
+            and not _is_f8(dtype))
 
 
 def prefill_attention(
@@ -58,24 +107,20 @@ def decode_attention_layered(
     start: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
     """Decode attention reading the FULL layer-stacked cache at a dynamic
-    layer index. The Pallas kernel indexes the layer in its block index map
-    (zero-copy); the XLA path reads kv[layer] as a dynamic-slice that fuses
-    into the einsum.
+    layer index. The kernel reads the layer in place; the XLA path reads
+    kv[layer] as a dynamic-slice that fuses into the einsum.
 
     `start` (scalar): mask out cache positions < start — a lane refilled
     mid-session by the continuous-batching scheduler has stale entries from
     the previous occupant below its splice point (runtime/continuous.py)."""
-    from .pallas_attention import decode_attention_pallas_layered, use_pallas_decode
+    _, _, Hkv, C, D = kv.shape
 
-    L, _, Hkv, C, D = kv.shape
-    block = 256 if C % 256 == 0 else 128
-    MIN_PALLAS_CAPACITY = 1024
-    if (start is None and use_pallas_decode() and C % block == 0
-            and C >= MIN_PALLAS_CAPACITY
-            and D % 128 == 0 and q.shape[0] % Hkv == 0
-            and not _is_f8(kv.dtype)):
-        return decode_attention_pallas_layered(q, kv, layer, n_valid, block=block)
-    return decode_attention(q, kv[layer, 0], kv[layer, 1], n_valid, start)
+    def einsum(q, kv, layer, n_valid, start):
+        return decode_attention(q, kv[layer, 0], kv[layer, 1], n_valid, start)
+
+    return _dispatch(einsum, "decode_attention_pallas_layered",
+                     kernel_fits(C, D, q.shape[0], Hkv, kv.dtype),
+                     q, kv, layer, n_valid, start)
 
 
 def decode_attention_auto(
@@ -85,25 +130,28 @@ def decode_attention_auto(
     n_valid: jnp.ndarray,
     start: jnp.ndarray | None = None,
 ) -> jnp.ndarray:
-    """Dispatch decode attention over a head-major [Hkv, C, D] cache: the
-    Pallas fused kernel on TPU when shapes qualify (capacity and head_dim
-    multiples of 128), the XLA einsum path otherwise (CPU tests, tiny
-    configs, QWEN3TTS_NO_PALLAS=1)."""
-    from .pallas_attention import decode_attention_pallas, use_pallas_decode
-
-    # Below ~1k cache slots the whole cache is a few MB and the XLA einsum is
-    # faster than 28 extra kernel launches per step; the Pallas kernel wins
-    # when capacity is large and mostly empty (long-form budgets).
-    MIN_PALLAS_CAPACITY = 1024
-
+    """Decode attention over a head-major [Hkv, C, D] cache: the kernel on
+    CUDA when kernel_fits, the einsum otherwise."""
     Hkv, C, D = k_cache.shape
-    block = 256 if C % 256 == 0 else 128
-    if (start is None and use_pallas_decode() and C % block == 0
-            and C >= MIN_PALLAS_CAPACITY
-            and D % 128 == 0 and q.shape[0] % Hkv == 0
-            and not _is_f8(k_cache.dtype)):
-        return decode_attention_pallas(q, k_cache, v_cache, n_valid, block=block)
-    return decode_attention(q, k_cache, v_cache, n_valid, start)
+    return _dispatch(decode_attention, "decode_attention_pallas",
+                     kernel_fits(C, D, q.shape[0], Hkv, k_cache.dtype),
+                     q, k_cache, v_cache, n_valid, start)
+
+
+def _dispatch(einsum, kernel_name: str, fits: bool, *args):
+    """einsum(*args) everywhere, or the named kernel when lowering for CUDA
+    and the shape fits. `start` (the last arg) may be None: no stale rows."""
+    if not fits:
+        return einsum(*args)
+    from . import pallas_attention
+
+    kernel = getattr(pallas_attention, kernel_name)
+    *head, start = args
+    if start is None:
+        return lax.platform_dependent(
+            *head, cuda=lambda *a: kernel(*a, 0),
+            default=lambda *a: einsum(*a, None))
+    return lax.platform_dependent(*head, start, cuda=kernel, default=einsum)
 
 
 def _is_f8(dtype) -> bool:
@@ -119,9 +167,8 @@ def decode_attention(
 ) -> jnp.ndarray:
     """Single-token attention over a preallocated KV cache. Returns [Hq, D].
 
-    An fp8 (e4m3) cache is upcast explicitly — XLA fuses the convert into
-    the matmul operand read, so HBM traffic stays 8-bit (the serving win:
-    decode attention is cache-read-bound)."""
+    An fp8 (e4m3) cache is upcast explicitly; XLA fuses the convert into the
+    matmul operand read, so the cache is read at 8 bits."""
     Hq, D = q.shape
     Hkv, C, _ = k_cache.shape
     group = Hq // Hkv

@@ -1,23 +1,30 @@
-"""Pallas fused decode-attention kernel (single query vs KV cache).
+"""Split-K decode attention (one query token against a KV cache), written in
+Pallas for the Triton route.
 
-The XLA reference path (ops/attention.py decode_attention) computes masked
-attention over the FULL preallocated cache every step: at a 4096-frame budget
-that is ~470 MB of KV reads per frame across the talker's 28 layers whether
-2 or 4000 positions are valid. This kernel grids over KV blocks only (all KV
-heads processed per iteration — grid-iteration overhead is what kills a
-(head, block) grid at 28 calls/frame), prefetches ``n_valid`` as a scalar,
-and clamps out-of-range block indices so their DMA is never issued: per-step
-KV traffic and grid work are proportional to the actual context
-(flash-attention style online softmax, one pass).
+The XLA path (``ops/attention.decode_attention``) reads the whole
+preallocated cache every step: at a 4096-frame budget that is
+28 layers x 2 x 8 heads x 4352 rows x 128 x 2 B ~= 499 MB per talker step in
+bf16, whether 64 or 4000 rows are valid. This kernel reads only the rows in
+[start, n_valid) (flash-decoding):
 
-TPU tiling notes: the cache is head-major [Hkv, C, D] so a KV block is a
-legal (Hkv, BLOCK, D) fetch; the per-head query group (G = Hq/Hkv = 2) is
-zero-padded to 8 sublanes and all heads stack into [Hkv*8, D] scratch. The
-padded rows compute garbage that is sliced away on return (bandwidth-bound
-kernel; the extra VPU rows are free).
+- grid (KV head, split): split j owns cache rows [j*S, (j+1)*S); its program
+  loops over the ``block_k``-row blocks of that range that overlap
+  [start, n_valid) and skips the rest, so traffic follows the valid prefix;
+- each program keeps an online softmax (running max m, denominator l and the
+  unnormalised output o) in registers and writes (o, m, l) for its split;
+- a small ``jnp`` combine merges the splits.
 
-Semantics are identical to decode_attention: GQA, scale 1/sqrt(D), softmax in
-f32 over cache[0:n_valid].
+The query group (G = Hq/Hkv query heads per KV head) is zero-padded to 16
+rows, the smallest M a tensor-core dot takes; the padded rows are sliced away.
+
+The cache keeps its head-major layouts: ``[Hkv, C, D]`` per layer, or the
+layer-stacked ``[L, 2, Hkv, C, D]`` read in place at a traced layer index
+(a custom call cannot fuse a dynamic slice, so slicing ``kv[layer]`` first
+would copy the layer every step). The cache refs are passed unblocked and the
+kernel computes its own row offsets.
+
+Semantics match ``decode_attention``: GQA, scale 1/sqrt(D), softmax in f32
+over cache rows [start, n_valid).
 """
 
 from __future__ import annotations
@@ -26,231 +33,150 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-DEFAULT_BLOCK = 256
-GROUP_PAD = 8
 NEG_INF = -1e30
+GROUP_PAD = 16       # tensor-core dots need M >= 16
+BLOCK_K = 64         # cache rows per inner-loop step
+MAX_SPLITS = 32      # splits per KV head (grid = Hkv x splits programs)
 
 
-def _decode_attn_kernel(n_valid_ref, q_ref, k_ref, v_ref, o_ref,
-                        m_ref, l_ref, acc_ref, *, block: int, n_kv: int):
-    j = pl.program_id(0)
-    n_valid = n_valid_ref[0]
-    GP = GROUP_PAD
-
-    @pl.when(j == 0)
-    def _init():
-        m_ref[...] = jnp.full_like(m_ref, NEG_INF)
-        l_ref[...] = jnp.zeros_like(l_ref)
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    @pl.when(j * block < n_valid)
-    def _block():
-        col = j * block + jax.lax.broadcasted_iota(jnp.int32, (GP, block), 1)
-        valid = col < n_valid
-        scale = 1.0 / (q_ref.shape[-1] ** 0.5)
-        for h in range(n_kv):  # unrolled: static head count
-            rows = slice(h * GP, (h + 1) * GP)
-            q = q_ref[h].astype(jnp.float32)            # [GP, D]
-            k = k_ref[h].astype(jnp.float32)            # [BLK, D]
-            v = v_ref[h].astype(jnp.float32)            # [BLK, D]
-            s = jax.lax.dot_general(
-                q, k, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32) * scale
-            s = jnp.where(valid, s, NEG_INF)
-
-            m_prev = m_ref[rows, 0:1]
-            m_new = jnp.maximum(m_prev, jnp.max(s, axis=1, keepdims=True))
-            p = jnp.exp(s - m_new)
-            alpha = jnp.exp(m_prev - m_new)
-            l_ref[rows, :] = jnp.broadcast_to(
-                alpha * l_ref[rows, 0:1] + jnp.sum(p, axis=1, keepdims=True),
-                (GP, l_ref.shape[1]))
-            acc_ref[rows, :] = acc_ref[rows, :] * alpha + jax.lax.dot_general(
-                p, v, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32)
-            m_ref[rows, :] = jnp.broadcast_to(m_new, (GP, m_ref.shape[1]))
-
-    @pl.when(j == pl.num_programs(0) - 1)
-    def _finish():
-        l = l_ref[:, 0:1]
-        out = (acc_ref[...] / jnp.maximum(l, 1e-30)).astype(o_ref.dtype)
-        o_ref[...] = out.reshape(o_ref.shape)
+def num_splits(capacity: int, block_k: int = BLOCK_K,
+               max_splits: int = MAX_SPLITS) -> int:
+    """Largest split count <= max_splits that divides the capacity's blocks
+    (each split then covers a whole number of blocks)."""
+    n_blocks = capacity // block_k
+    return max(s for s in range(1, min(max_splits, n_blocks) + 1)
+               if n_blocks % s == 0)
 
 
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
+def _kernel(nv_ref, st_ref, ly_ref, q_ref, k_ref, v_ref, o_ref, m_ref, l_ref,
+            *, block_k: int, split: int, k_kind: int, v_kind: int):
+    h = pl.program_id(0)
+    j = pl.program_id(1)
+    n_valid = nv_ref[()]
+    start = st_ref[()]
+    layer = ly_ref[()]
+    lo = jnp.maximum(j * split, start)
+    hi = jnp.minimum((j + 1) * split, n_valid)
+    b_lo = lo // block_k
+    b_hi = jnp.where(hi > lo, (hi + block_k - 1) // block_k, b_lo)
+
+    q = q_ref[...]                                         # [GP, D]
+    gp, d = q.shape
+    scale = 1.0 / (d ** 0.5)
+    precision = (lax.Precision.HIGHEST if q.dtype == jnp.float32 else None)
+    rows = jnp.arange(block_k)
+
+    def body(b, carry):
+        o, m, l = carry
+        off = pl.multiple_of(b * block_k, block_k)
+        k = k_ref[layer, k_kind, h, pl.ds(off, block_k), :]   # [BK, D]
+        v = v_ref[layer, v_kind, h, pl.ds(off, block_k), :]
+        s = pl.dot(q, k.astype(q.dtype), trans_b=True,
+                   precision=precision) * scale                # [GP, BK] f32
+        idx = off + rows
+        valid = (idx >= start) & (idx < n_valid)
+        s = jnp.where(valid[None, :], s, NEG_INF)
+        m_new = jnp.maximum(m, jnp.max(s, axis=1))
+        p = jnp.exp(s - m_new[:, None])
+        alpha = jnp.exp(m - m_new)
+        l_new = alpha * l + jnp.sum(p, axis=1)
+        o_new = alpha[:, None] * o + pl.dot(
+            p.astype(v.dtype), v, precision=precision)
+        return o_new, m_new, l_new
+
+    init = (jnp.zeros((gp, d), jnp.float32),
+            jnp.full((gp,), NEG_INF, jnp.float32),
+            jnp.zeros((gp,), jnp.float32))
+    o, m, l = lax.fori_loop(b_lo, b_hi, body, init)
+    o_ref[...] = o
+    m_ref[...] = m
+    l_ref[...] = l
+
+
+def _decode(q, k5, v5, k_kind, v_kind, layer, n_valid, start, *,
+            block_k, splits, interpret):
+    """q [Hq, D]; k5/v5 [L, 2|1, Hkv, C, D] read at (layer, kind)."""
+    Hq, D = q.shape
+    Hkv, C = k5.shape[2], k5.shape[3]
+    G = Hq // Hkv
+    assert G <= GROUP_PAD and Hq % Hkv == 0, (Hq, Hkv)
+    assert C % block_k == 0, f"capacity {C} must be a multiple of {block_k}"
+    splits = splits or num_splits(C, block_k)
+    assert (C // block_k) % splits == 0, (C, block_k, splits)
+    split = C // splits
+
+    qg = jnp.zeros((Hkv, GROUP_PAD, D), q.dtype).at[:, :G].set(
+        q.reshape(Hkv, G, D))
+    scalar = pl.BlockSpec((), lambda h, j: ())
+    whole = pl.BlockSpec(k5.shape, lambda h, j: (0,) * 5)
+    o, m, l = pl.pallas_call(
+        functools.partial(_kernel, block_k=block_k, split=split,
+                          k_kind=k_kind, v_kind=v_kind),
+        grid=(Hkv, splits),
+        in_specs=[scalar, scalar, scalar,
+                  pl.BlockSpec((None, GROUP_PAD, D), lambda h, j: (h, 0, 0)),
+                  whole, whole],
+        out_specs=[
+            pl.BlockSpec((None, None, GROUP_PAD, D), lambda h, j: (h, j, 0, 0)),
+            pl.BlockSpec((None, None, GROUP_PAD), lambda h, j: (h, j, 0)),
+            pl.BlockSpec((None, None, GROUP_PAD), lambda h, j: (h, j, 0)),
+        ],
+        out_shape=[
+            jax.ShapeDtypeStruct((Hkv, splits, GROUP_PAD, D), jnp.float32),
+            jax.ShapeDtypeStruct((Hkv, splits, GROUP_PAD), jnp.float32),
+            jax.ShapeDtypeStruct((Hkv, splits, GROUP_PAD), jnp.float32),
+        ],
+        compiler_params=plgpu.CompilerParams(num_warps=4, num_stages=2),
+        backend="triton",
+        interpret=interpret,
+        name="decode_attention",
+    )(jnp.asarray(n_valid, jnp.int32), jnp.asarray(start, jnp.int32),
+      jnp.asarray(layer, jnp.int32), qg, k5, v5)
+
+    # merge the splits; empty splits carry m = NEG_INF, l = 0, o = 0
+    m_all = jnp.max(m, axis=1, keepdims=True)               # [Hkv, 1, GP]
+    corr = jnp.exp(m - m_all)
+    l_all = jnp.sum(l * corr, axis=1)                        # [Hkv, GP]
+    o_all = jnp.sum(o * corr[..., None], axis=1)             # [Hkv, GP, D]
+    out = o_all / jnp.maximum(l_all, 1e-30)[..., None]
+    return out[:, :G].reshape(Hq, D).astype(q.dtype)
+
+
+@functools.partial(jax.jit,
+                   static_argnames=("block_k", "splits", "interpret"))
 def decode_attention_pallas(
     q: jnp.ndarray,        # [Hq, D]
     k_cache: jnp.ndarray,  # [Hkv, C, D] head-major
     v_cache: jnp.ndarray,  # [Hkv, C, D]
     n_valid: jnp.ndarray,  # scalar int32
+    start: jnp.ndarray | int = 0,   # scalar: rows < start are stale
     *,
-    block: int = DEFAULT_BLOCK,
+    block_k: int = BLOCK_K,
+    splits: int | None = None,
     interpret: bool = False,
 ) -> jnp.ndarray:
-    Hq, D = q.shape
-    Hkv, C, _ = k_cache.shape
-    G = Hq // Hkv
-    GP = GROUP_PAD
-    assert G <= GP, f"query group {G} exceeds sublane padding {GP}"
-    assert C % block == 0, f"cache capacity {C} must be a multiple of {block}"
-    n_blocks = C // block
-
-    qg = q.reshape(Hkv, G, D)
-    q_pad = jnp.zeros((Hkv, GP, D), q.dtype).at[:, :G, :].set(qg)
-
-    # Clamp out-of-range KV block indices to the last valid block: Pallas only
-    # issues a DMA when the block index changes, so blocks past n_valid are
-    # never fetched from HBM (the kernel's pl.when guard skips their compute).
-    # NB: index maps must stay trivially lowerable — truncating lax.div /
-    # lax.min (a Python // on traced ints emits a sign-correcting select_n
-    # that the Mosaic index-map lowering rejects).
-    def kv_index(j, n_ref):
-        last = jax.lax.div(n_ref[0] - 1, jnp.int32(block))
-        return (0, jax.lax.min(j, last), 0)
-
-    out = pl.pallas_call(
-        functools.partial(_decode_attn_kernel, block=block, n_kv=Hkv),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(n_blocks,),
-            in_specs=[
-                pl.BlockSpec((Hkv, GP, D), lambda j, n_ref: (0, 0, 0)),
-                pl.BlockSpec((Hkv, block, D), kv_index),
-                pl.BlockSpec((Hkv, block, D), kv_index),
-            ],
-            out_specs=pl.BlockSpec((Hkv, GP, D), lambda j, n_ref: (0, 0, 0)),
-            scratch_shapes=[
-                pltpu.VMEM((Hkv * GP, 128), jnp.float32),  # running max
-                pltpu.VMEM((Hkv * GP, 128), jnp.float32),  # running denom
-                pltpu.VMEM((Hkv * GP, D), jnp.float32),    # output accumulator
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((Hkv, GP, D), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(jnp.asarray(n_valid, jnp.int32)[None], q_pad, k_cache, v_cache)
-    return out[:, :G, :].reshape(Hq, D)
+    return _decode(q, k_cache[None, None], v_cache[None, None], 0, 0, 0,
+                   n_valid, start, block_k=block_k, splits=splits,
+                   interpret=interpret)
 
 
-def use_pallas_decode() -> bool:
-    """Pallas decode attention is used on real TPU backends unless disabled
-    via QWEN3TTS_NO_PALLAS=1 (tests on CPU use the XLA path, or interpret
-    mode explicitly)."""
-    import os
-
-    if os.environ.get("QWEN3TTS_NO_PALLAS"):
-        return False
-    try:
-        return jax.default_backend() not in ("cpu",)
-    except Exception:
-        return False
-
-
-def _decode_attn_kernel_layered(s_ref, q_ref, k_ref, v_ref, o_ref,
-                                m_ref, l_ref, acc_ref, *, block: int, n_kv: int):
-    """Same math as _decode_attn_kernel with K/V refs blocked as
-    (1, 1, Hkv, BLOCK, D) out of the layer-stacked cache."""
-    j = pl.program_id(0)
-    n_valid = s_ref[0]
-    GP = GROUP_PAD
-
-    @pl.when(j == 0)
-    def _init():
-        m_ref[...] = jnp.full_like(m_ref, NEG_INF)
-        l_ref[...] = jnp.zeros_like(l_ref)
-        acc_ref[...] = jnp.zeros_like(acc_ref)
-
-    @pl.when(j * block < n_valid)
-    def _block():
-        col = j * block + jax.lax.broadcasted_iota(jnp.int32, (GP, block), 1)
-        valid = col < n_valid
-        scale = 1.0 / (q_ref.shape[-1] ** 0.5)
-        for h in range(n_kv):
-            rows = slice(h * GP, (h + 1) * GP)
-            q = q_ref[h].astype(jnp.float32)
-            k = k_ref[0, 0, h].astype(jnp.float32)
-            v = v_ref[0, 0, h].astype(jnp.float32)
-            s = jax.lax.dot_general(
-                q, k, (((1,), (1,)), ((), ())),
-                preferred_element_type=jnp.float32) * scale
-            s = jnp.where(valid, s, NEG_INF)
-
-            m_prev = m_ref[rows, 0:1]
-            m_new = jnp.maximum(m_prev, jnp.max(s, axis=1, keepdims=True))
-            p = jnp.exp(s - m_new)
-            alpha = jnp.exp(m_prev - m_new)
-            l_ref[rows, :] = jnp.broadcast_to(
-                alpha * l_ref[rows, 0:1] + jnp.sum(p, axis=1, keepdims=True),
-                (GP, l_ref.shape[1]))
-            acc_ref[rows, :] = acc_ref[rows, :] * alpha + jax.lax.dot_general(
-                p, v, (((1,), (0,)), ((), ())), preferred_element_type=jnp.float32)
-            m_ref[rows, :] = jnp.broadcast_to(m_new, (GP, m_ref.shape[1]))
-
-    @pl.when(j == pl.num_programs(0) - 1)
-    def _finish():
-        l = l_ref[:, 0:1]
-        out = (acc_ref[...] / jnp.maximum(l, 1e-30)).astype(o_ref.dtype)
-        o_ref[...] = out.reshape(o_ref.shape)
-
-
-@functools.partial(jax.jit, static_argnames=("block", "interpret"))
+@functools.partial(jax.jit,
+                   static_argnames=("block_k", "splits", "interpret"))
 def decode_attention_pallas_layered(
     q: jnp.ndarray,        # [Hq, D]
-    kv: jnp.ndarray,       # [L, 2, Hkv, C, D] full layer-stacked cache
+    kv: jnp.ndarray,       # [L, 2, Hkv, C, D] layer-stacked cache
     layer: jnp.ndarray,    # scalar int32
     n_valid: jnp.ndarray,  # scalar int32
+    start: jnp.ndarray | int = 0,
     *,
-    block: int = DEFAULT_BLOCK,
+    block_k: int = BLOCK_K,
+    splits: int | None = None,
     interpret: bool = False,
 ) -> jnp.ndarray:
-    """Same kernel as decode_attention_pallas but reading K/V directly out of
-    the layer-stacked cache via the block index map — the caller never slices
-    the cache (a dynamic-slice of [2, Hkv, C, D] would copy ~36 MB/layer at a
-    4k-frame budget)."""
-    Hq, D = q.shape
-    L, _, Hkv, C, _ = kv.shape
-    G = Hq // Hkv
-    GP = GROUP_PAD
-    assert G <= GP
-    assert C % block == 0, f"cache capacity {C} must be a multiple of {block}"
-    n_blocks = C // block
-
-    qg = q.reshape(Hkv, G, D)
-    q_pad = jnp.zeros((Hkv, GP, D), q.dtype).at[:, :G, :].set(qg)
-    scalars = jnp.stack([jnp.asarray(n_valid, jnp.int32),
-                         jnp.asarray(layer, jnp.int32)])
-
-    def kv_index(kind):
-        def index(j, s_ref):
-            last = jax.lax.div(s_ref[0] - 1, jnp.int32(block))
-            return (s_ref[1], kind, 0, jax.lax.min(j, last), 0)
-        return index
-
-    out = pl.pallas_call(
-        functools.partial(_decode_attn_kernel_layered, block=block, n_kv=Hkv),
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=1,
-            grid=(n_blocks,),
-            in_specs=[
-                pl.BlockSpec((Hkv, GP, D), lambda j, s_ref: (0, 0, 0)),
-                pl.BlockSpec((1, 1, Hkv, block, D), kv_index(0)),
-                pl.BlockSpec((1, 1, Hkv, block, D), kv_index(1)),
-            ],
-            out_specs=pl.BlockSpec((Hkv, GP, D), lambda j, s_ref: (0, 0, 0)),
-            scratch_shapes=[
-                pltpu.VMEM((Hkv * GP, 128), jnp.float32),
-                pltpu.VMEM((Hkv * GP, 128), jnp.float32),
-                pltpu.VMEM((Hkv * GP, D), jnp.float32),
-            ],
-        ),
-        out_shape=jax.ShapeDtypeStruct((Hkv, GP, D), q.dtype),
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary",),
-        ),
-        interpret=interpret,
-    )(scalars, q_pad, kv, kv)
-    return out[:, :G, :].reshape(Hq, D)
+    """Reads K/V of `layer` straight out of the stacked cache (no copy)."""
+    return _decode(q, kv, kv, 0, 1, layer, n_valid, start, block_k=block_k,
+                   splits=splits, interpret=interpret)

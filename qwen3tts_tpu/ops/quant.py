@@ -1,6 +1,6 @@
 """Weight-only int8 quantization for the decode hot path.
 
-The frame loop is HBM-bound on weight reads (talker ~0.9 GB/frame + 15
+The frame loop reads every weight each step (talker ~0.9 GB/frame + 15
 sequential code-predictor passes ~2.3 GB/frame in bf16); int8 halves that.
 Storage parity with the reference's Q8_0 GGUF files lives in io/gguf.py
 (per-32-block scales); the runtime compute path uses per-output-channel
@@ -132,9 +132,7 @@ def quantize_talker_blocks(blocks: BlockParams, tier: str) -> BlockParams:
     """The one place the serving-tier names resolve to block policies:
     "int8" -> all-int8; "q4" -> MIXED attn-int8/ffn-u4 (the 4-bit default —
     see quantize_block_params_mixed); "q4pure" -> all-u4 (smallest, lossier).
-    The code predictor stays int8 in every tier (its weights are
-    VMEM-resident in the fused kernel, read once per frame — 4-bit buys
-    nothing there and costs accuracy)."""
+    The code predictor stays int8 in every tier (4-bit costs it accuracy)."""
     if tier == "int8":
         return quantize_block_params(blocks)
     if tier == "q4":

@@ -26,16 +26,16 @@ class QuantLinear4(NamedTuple):
     scales instead of Q4_K's 6-bit quantized scale/min pairs — measured
     strictly more accurate than a Q4_K storage roundtrip on the same weights
     (asymmetric fit beats symmetric int4 by a wide margin on
-    gaussian-distributed weights; see docs/performance.md).
+    gaussian-distributed weights; tests/test_quant.py).
 
     Byte [i, n] holds row i in its low nibble and row i + K/2 in its high
     nibble. This layout unpacks into two contiguous [K/2, N] halves — no
-    lane/sublane interleave — so a matmul is two half-K dots. Group g covers
+    interleave — so a matmul is two half-K dots. Group g covers
     LOGICAL rows [g*gs, (g+1)*gs) with gs = K // G (32 at the real shapes);
     groups [0, G/2) cover the low-nibble half, [G/2, G) the high half.
 
     Q4_K's on-disk super-block layout itself is a storage codec tuned for
-    AVX/NEON dot kernels, not MXU dots — see io/gguf.py for that codec; GGUF
+    AVX/NEON dot kernels — see io/gguf.py for that codec; GGUF
     Q4_K tensors re-quantize into this runtime format at load.
     """
 
@@ -67,18 +67,8 @@ def unpack4(q: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
 
 def matmul(x: jnp.ndarray, w: Weight) -> jnp.ndarray:
     """x @ w for a plain or quantized weight. The int8->bf16 convert + scale
-    ride the matmul as fused prologue/epilogue; HBM reads stay int8.
-
-    With QWEN3TTS_PALLAS_INT8=1 (and tileable 2-D shapes on TPU) the
-    hand-scheduled Pallas fused-dequant kernel is used instead of the XLA
-    convert+dot path."""
+    are left to XLA to fuse into the matmul as prologue/epilogue."""
     if isinstance(w, QuantLinear):
-        if w.q.ndim == 2 and x.ndim == 2:
-            from .pallas_int8_matmul import int8_matmul_pallas, pallas_int8_enabled
-
-            K, N = w.q.shape
-            if pallas_int8_enabled() and K % 128 == 0 and N % 128 == 0:
-                return int8_matmul_pallas(x, w.q, w.scale)
         y = jnp.dot(x, w.q.astype(x.dtype), preferred_element_type=jnp.float32)
         return (y * w.scale.astype(jnp.float32)).astype(x.dtype)
     if isinstance(w, QuantLinear4):

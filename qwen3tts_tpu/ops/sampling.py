@@ -28,6 +28,29 @@ import jax.numpy as jnp
 NEG_INF = -1e30  # plain float: no device allocation at import time
 
 
+def sampling_flags(temperature, top_p, greedy=None, use_top_p=None):
+    """Static sampler-stage gates, derived once at the outermost entry point
+    from python-float sampling params (traced scalars keep the conservative
+    dynamic path: greedy=False, use_top_p=True).
+
+    Flags instead of branchless compute: the top-p binary search is a chain
+    of full-vector reductions that costs time even when the stage is a no-op
+    (top_p == 1, or greedy decode). With flags the common classes skip it,
+    while changing temperature/top_p VALUES within a class never recompiles
+    (they stay traced scalars). Moving between classes (greedy<->sampled,
+    top_p on<->off) compiles each program once — four variants at most per
+    shape bucket.
+    """
+    if greedy is None:
+        greedy = isinstance(temperature, (int, float)) and float(temperature) <= 0.0
+    if use_top_p is None:
+        if isinstance(top_p, (int, float)):
+            use_top_p = float(top_p) < 1.0
+        else:
+            use_top_p = True
+    return bool(greedy), bool(use_top_p)
+
+
 def apply_suppression(logits: jnp.ndarray, suppress_start: int, eos_id: int) -> jnp.ndarray:
     """Mask ids in [suppress_start, vocab) except eos_id."""
     vocab = logits.shape[-1]
@@ -71,9 +94,7 @@ def apply_top_p(logits: jnp.ndarray, top_p) -> jnp.ndarray:
     largest tau with mass(probs >= tau) >= top_p — instead of a sort:
     O(V·iters) elementwise work traced once, no sort network per frame, and
     top_p may be a TRACED scalar (recompile-free sampling params). Bit-for-
-    bit the same keep-set as the sort formulation away from FP-tie edges;
-    the kernel samplers (ops/kernel_prng.make_sampler) use the identical
-    search so XLA and fused paths filter identically."""
+    bit the same keep-set as the sort formulation away from FP-tie edges."""
     if isinstance(top_p, (int, float)) and top_p >= 1.0:
         return logits
     probs = jax.nn.softmax(logits.astype(jnp.float32), axis=-1)
@@ -109,11 +130,9 @@ def sample_token(
     and top_p may be Python floats OR traced scalars — one compiled program
     serves every sampling configuration within a stage class (the reference
     accepts these per-call, src/tts_transformer.cpp:2577-2596). greedy /
-    use_top_p are static stage gates (kernel_prng.sampling_flags), derived
-    from python-float params when not given.
+    use_top_p are static stage gates (sampling_flags), derived from
+    python-float params when not given.
     """
-    from .kernel_prng import sampling_flags
-
     greedy, use_top_p = sampling_flags(temperature, top_p, greedy, use_top_p)
     greedy_tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
     if greedy:

@@ -1,16 +1,15 @@
-"""Device-mesh construction for multi-chip serving.
+"""Device-mesh construction for multi-device serving.
 
 The reference is single-process/single-device (SURVEY.md §2 parallelism
-inventory); its closest analog to a distribution layer is the GGML backend
-scheduler splitting graphs between Metal and CPU. On TPU the idiomatic
-scale-out is a ``jax.sharding.Mesh`` with named axes:
+inventory). Here scale-out is a ``jax.sharding.Mesh`` with named axes:
 
 - ``dp``  data parallel: independent utterances (batched serving)
-- ``tp``  tensor parallel: attention heads / FFN intermediate / vocab shards
-          riding ICI all-reduces inserted by GSPMD
+- ``tp``  tensor parallel: attention heads / FFN intermediate / vocab shards,
+          with the all-reduces GSPMD inserts
 
-At 0.6B a single chip is compute-rich; dp is the throughput axis and tp the
-latency axis. Both compose: mesh ("dp", "tp").
+At 0.6B one card is compute-rich; dp is the throughput axis and tp the
+latency axis. Both compose: mesh ("dp", "tp"). The cards of one host are
+joined all to all, so the mesh takes ``jax.devices()`` in order.
 """
 
 from __future__ import annotations
@@ -36,3 +35,16 @@ def single_device_mesh() -> Mesh:
 
 def replicated(mesh: Mesh) -> NamedSharding:
     return NamedSharding(mesh, P())
+
+
+def spans_devices(*trees) -> bool:
+    """True when any concrete array leaf is placed on more than one device
+    (sharded or replicated over a mesh). Tracers and host arrays carry no
+    placement and count as local."""
+    for x in jax.tree.leaves(trees):
+        if isinstance(x, jax.core.Tracer):
+            continue
+        s = getattr(x, "sharding", None)
+        if s is not None and len(s.device_set) > 1:
+            return True
+    return False

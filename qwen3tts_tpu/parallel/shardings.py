@@ -1,7 +1,7 @@
 """Named-axis parameter shardings (tensor parallelism over "tp").
 
 Partitioning policy for the Qwen3-style stacks, chosen so GSPMD's inserted
-collectives ride ICI (SURVEY.md §5 "distributed communication backend"):
+collectives ride the device interconnect (SURVEY.md §5 "distributed communication backend"):
 
 - q/k/v projections: shard the output (head) dim  -> no comm at apply
 - o projection:      shard the input (head) dim   -> one all-reduce per block
@@ -11,7 +11,7 @@ collectives ride ICI (SURVEY.md §5 "distributed communication backend"):
 - embeddings, norms: replicated
 
 KV caches inherit head-dim sharding from k/v producers. The talker's 8 KV
-heads bound useful tp at 8 (matching a v5e ICI ring).
+heads bound useful tp at 8.
 """
 
 from __future__ import annotations

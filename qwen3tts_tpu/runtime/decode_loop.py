@@ -7,7 +7,7 @@ sampling. Its own timing tables attribute ~71% of generation time to the code
 predictor and large constant costs to graph build/alloc (README.md:276-295).
 Under ``jax.jit`` with ``lax.while_loop`` none of that exists: one compiled
 program per (frame-bucket, text-bucket) pair runs prefill, per-frame talker
-steps, the 15-code predictor scan, and sampling without leaving the TPU.
+steps, the 15-code predictor scan, and sampling without leaving the device.
 
 Per frame (matching generate() semantics exactly):
   1. suppress codec ids [vocab-1024, vocab) except EOS on the cb0 logits
@@ -23,7 +23,6 @@ Per frame (matching generate() semantics exactly):
 from __future__ import annotations
 
 import functools
-import os as _os
 from typing import NamedTuple
 
 import jax
@@ -34,99 +33,10 @@ from jax import lax
 from ..config import CodePredictorConfig, TalkerConfig
 from ..models import code_predictor as cp_model
 from ..models import talker as talker_model
-from ..ops.kernel_prng import sampling_flags
-from ..ops.sampling import apply_repetition_penalty, apply_suppression, sample_token
-
-# one batched code-predictor kernel call holds at most this many lanes in
-# VMEM (the 128 MB budget). Measured at B=64: one 64-lane call 2.57 ms vs
-# 4x16-lane chunks 4.88 ms (the weights are re-read per chunk), so chunking
-# only engages above 64 lanes.
-_CP_KERNEL_MAX_LANES = 64
-# the hand-batched fused loop accepts up to this many lanes (cp kernel runs
-# in <=64-lane chunks above 64; the talker kernel shrinks its KV slab);
-# larger batches fall to the vmapped XLA path. int8-KV at B=128 needs
-# ~3.9 GB of cache (bf16: 7.7 — near the chip's limit with weights).
-_BATCHED_FUSED_MAX_LANES = 128
-
-
-_SHARDED_FALLBACK_LOGGED: set = set()
-
-
-def _check_params_sharding(which: str, params, explicit: bool) -> bool:
-    """True when the fused kernel may run on these params: their committed
-    shardings (when inspectable — concrete arrays / ShapeDtypeStructs; the
-    public non-jitted wrappers resolve there) name no mesh axis of size > 1.
-    Partitioned params under "auto" log an XLA fallback once per (kernel,
-    axes); an EXPLICIT fused_*=True raises instead of lowering the
-    single-device pallas_call on sharded operands (parallel/kernel_safety)."""
-    from ..parallel.kernel_safety import partitioned_axes
-
-    axes = partitioned_axes(params)
-    if not axes:
-        return True
-    if explicit:
-        raise ValueError(
-            f"fused_{which}=True but the {which} params are partitioned over "
-            f"mesh axes {sorted(axes)}: the Pallas kernels are single-device "
-            "programs. Replicate the weights (dp-only mesh; the batched path "
-            "then keeps the kernels via shard_map) or pass "
-            f"fused_{which}='auto'/False.")
-    key = (which, tuple(sorted(axes)))
-    if key not in _SHARDED_FALLBACK_LOGGED:
-        _SHARDED_FALLBACK_LOGGED.add(key)
-        import sys
-
-        print(f"qwen3tts: fused {which} kernel off — params partitioned over "
-              f"mesh axes {sorted(axes)}; using the XLA path "
-              "(parallel/kernel_safety.py)", file=sys.stderr)
-    return False
-
-
-def _resolve_fused_talker(fused_talker, talker_params) -> bool:
-    """Static choice of the fused talker-step kernel ("auto" => TPU, any
-    weight tier — int8/w4 quantized or plain bf16 (the kernels' "bf16" mode
-    streams full-precision weights; QWEN3TTS_FUSED_TALKER_BF16=0 reverts the
-    full-precision tier to the XLA step). The capacity gate is applied at
-    the use site where kv.shape is known; the sharding gate
-    (_check_params_sharding) keeps tp-partitioned params off the kernel."""
-    if fused_talker == "auto":
-        from ..ops.pallas_talker_step import fused_talker_enabled
-        from ..ops.quantized_matmul import QuantLinear, QuantLinear4
-
-        if not fused_talker_enabled():
-            return False
-        if not _check_params_sharding("talker", talker_params, explicit=False):
-            return False
-        if isinstance(talker_params.blocks.wqkv, (QuantLinear, QuantLinear4)):
-            return True
-        return (_os.environ.get("QWEN3TTS_FUSED_TALKER_BF16", "1")
-                not in ("0", "false", "off"))
-    if fused_talker:
-        _check_params_sharding("talker", talker_params, explicit=True)
-    return bool(fused_talker)
-
-
-def _resolve_fused_cp(fused_cp, cp_params) -> bool:
-    """Static (trace-time) choice of the mega-fused code-predictor kernel.
-
-    "auto" => on when the backend is a TPU, the blocks are int8-quantized
-    (the kernel keeps them VMEM-resident), and the params carry no
-    partitioned sharding (_check_params_sharding). The kernel samples with
-    the full temperature/top-k/top-p semantics on-device
-    (ops/kernel_prng.py), so top_p no longer gates the fast path. See
-    ops/pallas_code_predictor.py.
-    """
-    if fused_cp == "auto":
-        from ..ops.pallas_code_predictor import fused_cp_enabled
-        from ..ops.quantized_matmul import QuantLinear
-
-        return (fused_cp_enabled()
-                and isinstance(cp_params.blocks.wqkv, QuantLinear)
-                and _check_params_sharding("code-predictor", cp_params,
-                                           explicit=False))
-    if fused_cp:
-        _check_params_sharding("code-predictor", cp_params, explicit=True)
-    return bool(fused_cp)
+from ..ops.attention import kernel_allowed
+from ..ops.sampling import (apply_repetition_penalty, apply_suppression,
+                            sample_token, sampling_flags)
+from ..parallel.mesh import spans_devices
 
 
 class GenerateResult(NamedTuple):
@@ -138,8 +48,7 @@ class GenerateResult(NamedTuple):
 class _LoopState(NamedTuple):
     frame: jnp.ndarray
     n_past: jnp.ndarray
-    logits: jnp.ndarray      # [Vc] ([0] when the kernel samples cb0)
-    cb0_next: jnp.ndarray    # scalar next-frame cb0 ([0] unless kernel-sampled)
+    logits: jnp.ndarray      # [Vc] cb0 logits of the last talker step
     last_hidden: jnp.ndarray
     kv: jnp.ndarray
     seen: jnp.ndarray
@@ -147,45 +56,6 @@ class _LoopState(NamedTuple):
     hidden_out: jnp.ndarray
     key: jax.Array
     done: jnp.ndarray
-
-
-def _resolve_kernel_cb0(use_fused_talker: bool) -> bool:
-    """Static gate for in-kernel cb0 sampling (the fused talker kernels'
-    head epilogue samples next frame's cb0; QWEN3TTS_KERNEL_CB0=0 falls back
-    to XLA suppression/penalty/sample_token on kernel logits)."""
-    return (use_fused_talker
-            and _os.environ.get("QWEN3TTS_KERNEL_CB0", "1")
-            not in ("0", "false", "off"))
-
-
-def _init_cb0(logits, key, talker_cfg, *, kernel_cb0, temperature, top_k,
-              top_p, repetition_penalty, allow_eos, greedy, use_top_p):
-    """Frame 0's cb0 comes from the prefill logits via the XLA sampler
-    (one-time; the kernel epilogue takes over from frame 1). Returns
-    (logits_carry, cb0_next, key) — with kernel_cb0 the carried logits
-    collapse to a [0] placeholder. The key split mirrors the loop body's
-    (key, k_cb0, k_cp) so batched lane b == single-stream with keys[b]."""
-    if not kernel_cb0:
-        return logits, jnp.zeros(logits.shape[:-1] + (0,), jnp.int32), key
-    Vc = talker_cfg.codec_vocab_size
-    suppress_start = Vc - talker_cfg.n_suppressed_tail
-    eos_for_mask = talker_cfg.codec_eos_id if allow_eos else -1
-    batched = logits.ndim == 2
-    if batched:
-        ks = jax.vmap(lambda k: jax.random.split(k, 3))(key)
-        key, k_cb0 = ks[:, 0], ks[:, 1]
-    else:
-        key, k_cb0, _ = jax.random.split(key, 3)
-    l0 = apply_suppression(logits, suppress_start, eos_for_mask)
-    if batched:
-        cb0 = jax.vmap(
-            lambda kk, row: sample_token(
-                kk, row, temperature=temperature, top_k=top_k, top_p=top_p,
-                greedy=greedy, use_top_p=use_top_p))(k_cb0, l0)
-    else:
-        cb0 = sample_token(k_cb0, l0, temperature=temperature, top_k=top_k,
-                           top_p=top_p, greedy=greedy, use_top_p=use_top_p)
-    return jnp.zeros(logits.shape[:-1] + (0,), jnp.float32), cb0, key
 
 
 def _rest_embd_sum(cp_params, cp_cfg, rest):
@@ -198,6 +68,29 @@ def _rest_embd_sum(cp_params, cp_cfg, rest):
         emb = cp_params.embds[idx[None, :], rest]        # [B, 15, H]
         return jnp.sum(emb.astype(jnp.float32), axis=1)
     return jnp.sum(cp_params.embds[idx, rest].astype(jnp.float32), axis=0)
+
+
+def _init_state(talker_params, talker_cfg, prefill, key, *, max_frames,
+                kv_capacity) -> _LoopState:
+    """Talker prefill over the fixed window + the loop's initial state."""
+    H = talker_cfg.hidden_size
+    Vc = talker_cfg.codec_vocab_size
+    dtype = talker_params.codec_embd.dtype
+    kv = talker_model.make_kv_cache(talker_cfg, kv_capacity, dtype)
+    last_hidden, logits, kv = talker_model.talker_prefill(
+        talker_params, talker_cfg, prefill.prefill_embd, kv)
+    return _LoopState(
+        frame=jnp.int32(0),
+        n_past=jnp.int32(prefill.prefill_embd.shape[0]),
+        logits=logits,
+        last_hidden=last_hidden,
+        kv=kv,
+        seen=jnp.zeros((Vc,), jnp.bool_),
+        codes=jnp.zeros((max_frames, talker_cfg.n_codebooks), jnp.int32),
+        hidden_out=jnp.zeros((max_frames, H), dtype),
+        key=key,
+        done=jnp.bool_(False),
+    )
 
 
 def generate(
@@ -216,10 +109,7 @@ def generate(
     repetition_penalty: float = 1.05,
     progress_cb=None,
     allow_eos: bool = True,
-    fused_cp="auto",
-    fused_talker="auto",
     kv_strategy: str = "auto",
-    kv_quant: str = "none",
     greedy=None,
     use_top_p=None,
     budget=None,   # traced scalar frame cap (EOS emulation / per-request)
@@ -228,57 +118,19 @@ def generate(
     shape bucket; temperature/top_p/repetition_penalty are traced scalars
     (value changes never recompile) and tensor args vary freely within it.
 
-    kv_quant="int8" stores the decode KV cache as (int8, f32 row scale) —
-    halves the valid-prefix DMA in the fused HBM talker kernel (the dominant
-    long-context cost). Requires the fused talker path; ignored elsewhere.
-
     progress_cb, if given, is invoked from the device loop via io_callback
     with the current frame count — this wires up the reference's declared-but-
     never-called progress callback (qwen3_tts.cpp:444-446) for real. It costs
     a host round trip per frame; leave it None on the fast path."""
-    H = talker_cfg.hidden_size
-    Vc = talker_cfg.codec_vocab_size
-    suppress_start = Vc - talker_cfg.n_suppressed_tail
-    prefill_len = prefill.prefill_embd.shape[0]
-    Trb = prefill.trailing.shape[0]
-    dtype = talker_params.codec_embd.dtype
-
-    kv = talker_model.make_kv_cache(talker_cfg, kv_capacity, dtype)
-    last_hidden, logits, kv = talker_model.talker_prefill(
-        talker_params, talker_cfg, prefill.prefill_embd, kv)
-    if kv_quant == "int8" and _resolve_fused_talker(fused_talker, talker_params):
-        from ..ops.kv_quant import quantize_kv
-
-        kv = quantize_kv(kv)
-
     greedy, use_top_p = sampling_flags(temperature, top_p, greedy, use_top_p)
-    logits, cb0_next, key = _init_cb0(
-        logits, key, talker_cfg,
-        kernel_cb0=_resolve_kernel_cb0(
-            _resolve_fused_talker(fused_talker, talker_params)),
-        temperature=temperature, top_k=top_k, top_p=top_p,
-        repetition_penalty=repetition_penalty, allow_eos=allow_eos,
-        greedy=greedy, use_top_p=use_top_p)
-    state = _LoopState(
-        frame=jnp.int32(0),
-        n_past=jnp.int32(prefill_len),
-        logits=logits,
-        cb0_next=cb0_next,
-        last_hidden=last_hidden,
-        kv=kv,
-        seen=jnp.zeros((Vc,), jnp.bool_),
-        codes=jnp.zeros((max_frames, talker_cfg.n_codebooks), jnp.int32),
-        hidden_out=jnp.zeros((max_frames, H), dtype),
-        key=key,
-        done=jnp.bool_(False),
-    )
-
+    state = _init_state(talker_params, talker_cfg, prefill, key,
+                        max_frames=max_frames, kv_capacity=kv_capacity)
     body = _make_body(
         talker_params, cp_params, talker_cfg, cp_cfg, prefill,
         temperature=temperature, top_k=top_k, top_p=top_p,
         repetition_penalty=repetition_penalty, progress_cb=progress_cb,
-        allow_eos=allow_eos, fused_cp=fused_cp, fused_talker=fused_talker,
-        kv_strategy=kv_strategy, greedy=greedy, use_top_p=use_top_p)
+        allow_eos=allow_eos, kv_strategy=kv_strategy, greedy=greedy,
+        use_top_p=use_top_p)
 
     limit = (jnp.int32(max_frames) if budget is None
              else jnp.minimum(jnp.int32(max_frames),
@@ -294,8 +146,7 @@ def generate(
 def _make_body(
     talker_params, cp_params, talker_cfg, cp_cfg, prefill, *,
     temperature, top_k, top_p, repetition_penalty, progress_cb, allow_eos,
-    fused_cp="auto", fused_talker="auto", kv_strategy: str = "auto",
-    greedy=None, use_top_p=None,
+    kv_strategy: str = "auto", greedy=None, use_top_p=None,
 ):
     """The per-frame loop body, shared by full and chunked (streaming)
     generation."""
@@ -303,9 +154,6 @@ def _make_body(
     suppress_start = Vc - talker_cfg.n_suppressed_tail
     Trb = prefill.trailing.shape[0]
     dtype = talker_params.codec_embd.dtype
-    use_fused_cp = _resolve_fused_cp(fused_cp, cp_params)
-    use_fused_talker = _resolve_fused_talker(fused_talker, talker_params)
-    kernel_cb0 = _resolve_kernel_cb0(use_fused_talker)
     greedy, use_top_p = sampling_flags(temperature, top_p, greedy, use_top_p)
 
     def body(s: _LoopState) -> _LoopState:
@@ -314,34 +162,18 @@ def _make_body(
         # runs regardless of what random/sampled logits prefer).
         eos_for_mask = talker_cfg.codec_eos_id if allow_eos else -1
         key, k_cb0, k_cp = jax.random.split(s.key, 3)
-        if kernel_cb0:
-            # sampled by the previous talker step's in-kernel epilogue
-            # (frame 0: by _init_cb0 from the prefill logits)
-            cb0 = s.cb0_next
-        else:
-            l = apply_suppression(s.logits, suppress_start, eos_for_mask)
-            l = apply_repetition_penalty(l, s.seen, repetition_penalty)
-            cb0 = sample_token(k_cb0, l, temperature=temperature, top_k=top_k,
-                               top_p=top_p, greedy=greedy, use_top_p=use_top_p)
+        l = apply_suppression(s.logits, suppress_start, eos_for_mask)
+        l = apply_repetition_penalty(l, s.seen, repetition_penalty)
+        cb0 = sample_token(k_cb0, l, temperature=temperature, top_k=top_k,
+                           top_p=top_p, greedy=greedy, use_top_p=use_top_p)
         done = jnp.logical_and(cb0 == talker_cfg.codec_eos_id, allow_eos)
 
         # --- residual codebooks 1..15 ---
         cb0_embd = talker_params.codec_embd[cb0]
-        if use_fused_cp:
-            from ..ops.pallas_code_predictor import fused_predict_codes
-
-            seed = lax.bitcast_convert_type(
-                jax.random.bits(k_cp, (), "uint32"), jnp.int32)
-            rest, rest_sum = fused_predict_codes(
-                cp_params, cp_cfg, s.last_hidden.astype(dtype), cb0_embd,
-                seed, temperature=temperature, top_k=top_k, top_p=top_p,
-                greedy=greedy, use_top_p=use_top_p)
-        else:
-            rest = cp_model.predict_codes(
-                cp_params, cp_cfg, s.last_hidden.astype(dtype), cb0_embd, k_cp,
-                temperature=temperature, top_k=top_k, top_p=top_p,
-                greedy=greedy, use_top_p=use_top_p)
-            rest_sum = None
+        rest = cp_model.predict_codes(
+            cp_params, cp_cfg, s.last_hidden.astype(dtype), cb0_embd, k_cp,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            greedy=greedy, use_top_p=use_top_p)
         frame_codes = jnp.concatenate([cb0[None], rest])
 
         emit = ~done
@@ -351,74 +183,16 @@ def _make_body(
         seen = s.seen.at[cb0].set(jnp.where(emit, True, s.seen[cb0]))
 
         # --- next-step input embedding ---
-        if rest_sum is None:
-            rest_sum = _rest_embd_sum(cp_params, cp_cfg, rest)
+        rest_sum = _rest_embd_sum(cp_params, cp_cfg, rest)
         trailing_row = prefill.trailing[jnp.minimum(s.frame, Trb - 1)]
         step_embd = (cb0_embd.astype(jnp.float32)
                      + rest_sum
                      + trailing_row.astype(jnp.float32)).astype(dtype)
 
         # --- talker step ---
-        # v1 (KV rides the grid through VMEM) wins at small capacities;
-        # v2 (KV in HBM, valid-prefix chunked DMA) has no capacity gate and
-        # keeps the same speed at long-form budgets (measured: v1 1.23 /
-        # v2 1.35 ms/step at C=512; v2 1.36 vs XLA 1.82 at C=2304).
-        # An int8 (q, scale) cache always routes v2 (it owns the slab DMA).
-        from ..ops.kv_quant import is_quantized_kv
-        from ..ops.pallas_talker_step import MAX_FUSED_CAPACITY
-
-        kv_is_q = is_quantized_kv(s.kv)
-        sample_kw = {}
-        if kernel_cb0:
-            # next frame's cb0 sampled in the kernel epilogue against the
-            # seen-set INCLUDING this frame's cb0 (same visibility the XLA
-            # path gives the next iteration); seeded by this body's k_cb0
-            sample_kw = dict(
-                seen=seen,
-                seeds=lax.bitcast_convert_type(
-                    jax.random.bits(k_cb0, (), "uint32"), jnp.int32),
-                temperature=temperature, top_p=top_p,
-                repetition_penalty=repetition_penalty, top_k=top_k,
-                suppress_start=suppress_start, eos_id=eos_for_mask,
-                greedy=greedy, use_top_p=use_top_p)
-        # QWEN3TTS_TALKER_KERNEL selects the single-stream kernel (read at
-        # trace time, like every QWEN3TTS_* gate — A/B in separate
-        # processes): "auto" = v1 (VMEM grid) within MAX_FUSED_CAPACITY,
-        # v4 (pipelined HBM) beyond; "pipelined" = v4 everywhere; "hbm" =
-        # v2 (HBM grid) everywhere; "v1" = same as auto. r5 silicon
-        # (chained x64): C=512 v1 1.16-1.21 / v4 1.24-1.26 / v2 1.29;
-        # C=1280/2304 v4 1.25-1.26 / v2 1.28-1.29 / XLA 1.77 ms/step.
-        # v1 at C<=1024 sits ON the chip's sustained-HBM roofline (440 MB
-        # int8 weights/step at ~380 GB/s = 1.15 ms), so scheduling cannot
-        # go lower — only fewer weight bytes can (the w4 tier).
-        kernel_variant = _os.environ.get("QWEN3TTS_TALKER_KERNEL", "auto")
-        if (use_fused_talker and kernel_variant in ("auto", "v1")
-                and not kv_is_q and s.kv.shape[3] <= MAX_FUSED_CAPACITY):
-            from ..ops.pallas_talker_step import fused_talker_step
-
-            hidden_f32, head_out, kv = fused_talker_step(
-                talker_params.blocks, talker_cfg, step_embd, s.n_past, s.kv,
-                output_norm=talker_params.output_norm,
-                codec_head=talker_params.codec_head, **sample_kw)
-            hidden = hidden_f32.astype(dtype)
-        elif use_fused_talker:
-            from ..ops.pallas_talker_step import fused_talker_step_hbm
-
-            hidden_f32, head_out, kv = fused_talker_step_hbm(
-                talker_params.blocks, talker_cfg, step_embd, s.n_past, s.kv,
-                output_norm=talker_params.output_norm,
-                codec_head=talker_params.codec_head,
-                variant=("grid" if kernel_variant == "hbm" else "pipelined"),
-                **sample_kw)
-            hidden = hidden_f32.astype(dtype)
-        else:
-            hidden, head_out, kv = talker_model.talker_step(
-                talker_params, talker_cfg, step_embd, s.n_past, s.kv,
-                strategy=kv_strategy)
-        if kernel_cb0:
-            logits, cb0_next = s.logits, head_out
-        else:
-            logits, cb0_next = head_out, s.cb0_next
+        hidden, logits, kv = talker_model.talker_step(
+            talker_params, talker_cfg, step_embd, s.n_past, s.kv,
+            strategy=kv_strategy)
 
         if progress_cb is not None:
             _io_callback(progress_cb, None, s.frame + emit.astype(jnp.int32),
@@ -428,7 +202,6 @@ def _make_body(
             frame=s.frame + emit.astype(jnp.int32),
             n_past=s.n_past + 1,
             logits=logits,
-            cb0_next=cb0_next,
             last_hidden=hidden,
             kv=kv,
             seen=seen,
@@ -461,9 +234,6 @@ def generate_from_tokens(
     nothink: bool = False,
     progress_cb=None,
     allow_eos: bool = True,
-    fused_cp="auto",
-    fused_talker="auto",
-    kv_quant: str = "none",
     greedy=None,
     use_top_p=None,
 ) -> GenerateResult:
@@ -471,18 +241,14 @@ def generate_from_tokens(
 
     temperature/top_p/repetition_penalty are traced — value changes reuse
     the compiled program; the static sampler-stage flags are derived here
-    (kernel_prng.sampling_flags), as are the sharding-aware fused-kernel
-    gates (params are concrete here; inside jit they are tracers)."""
+    (sampling.sampling_flags)."""
     greedy, use_top_p = sampling_flags(temperature, top_p, greedy, use_top_p)
-    fused_cp = _resolve_fused_cp(fused_cp, cp_params)
-    fused_talker = _resolve_fused_talker(fused_talker, talker_params)
     return _generate_from_tokens_jit(
         talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id,
         key, talker_cfg=talker_cfg, cp_cfg=cp_cfg, max_frames=max_frames,
         kv_capacity=kv_capacity, temperature=temperature, top_k=top_k,
         top_p=top_p, repetition_penalty=repetition_penalty, nothink=nothink,
-        progress_cb=progress_cb, allow_eos=allow_eos, fused_cp=fused_cp,
-        fused_talker=fused_talker, kv_quant=kv_quant, greedy=greedy,
+        progress_cb=progress_cb, allow_eos=allow_eos, greedy=greedy,
         use_top_p=use_top_p)
 
 
@@ -490,15 +256,14 @@ def generate_from_tokens(
     jax.jit,
     static_argnames=(
         "talker_cfg", "cp_cfg", "max_frames", "kv_capacity", "top_k",
-        "nothink", "progress_cb", "allow_eos", "fused_cp", "fused_talker",
-        "kv_quant", "greedy", "use_top_p",
+        "nothink", "progress_cb", "allow_eos", "greedy", "use_top_p",
     ),
 )
 def _generate_from_tokens_jit(
     talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id,
     key, *, talker_cfg, cp_cfg, max_frames, kv_capacity, temperature, top_k,
-    top_p, repetition_penalty, nothink, progress_cb, allow_eos, fused_cp,
-    fused_talker, kv_quant, greedy, use_top_p,
+    top_p, repetition_penalty, nothink, progress_cb, allow_eos, greedy,
+    use_top_p,
 ) -> GenerateResult:
     prefill = talker_model.build_prefill(
         talker_params, talker_cfg, tokens, n_tokens, speaker_embd, language_id,
@@ -508,170 +273,35 @@ def _generate_from_tokens_jit(
         max_frames=max_frames, kv_capacity=kv_capacity,
         temperature=temperature, top_k=top_k, top_p=top_p,
         repetition_penalty=repetition_penalty, progress_cb=progress_cb,
-        allow_eos=allow_eos, fused_cp=fused_cp, fused_talker=fused_talker,
-        kv_quant=kv_quant, greedy=greedy, use_top_p=use_top_p)
+        allow_eos=allow_eos, greedy=greedy, use_top_p=use_top_p)
 
 
 def generate_from_tokens_batched(
     talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id,
     keys, *, talker_cfg, cp_cfg, max_frames, kv_capacity, temperature, top_k,
-    top_p=1.0, repetition_penalty=1.05, nothink=False, fused_cp="auto",
-    fused_talker="auto", allow_eos=True, kv_quant="none", greedy=None,
-    use_top_p=None, budgets=None,
+    top_p=1.0, repetition_penalty=1.05, nothink=False, allow_eos=True,
+    greedy=None, use_top_p=None, budgets=None,
 ) -> GenerateResult:
-    """See _generate_from_tokens_batched_jit; this wrapper derives the static
-    sampler-stage flags from python-float params (kernel_prng.sampling_flags)
-    so temperature/top_p value changes never recompile.
-
-    The fused-kernel gates resolve HERE, on concrete params whose committed
-    shardings are inspectable (inside jit they are tracers): tp-partitioned
-    params fall back to XLA; weights replicated on a multi-device mesh keep
-    the kernels by running the whole batched loop under shard_map over "dp"
-    — each device holds the full weights and decodes its own lane slice
-    (parallel/kernel_safety.py)."""
+    """See _generate_from_tokens_batched_jit. This wrapper derives the static
+    sampler-stage flags from python-float params (sampling.sampling_flags),
+    so temperature/top_p value changes never recompile, and whether the
+    decode-attention kernel may run: not when the params or lanes span
+    several devices (pallas_call has no partitioning rule)."""
     greedy, use_top_p = sampling_flags(temperature, top_p, greedy, use_top_p)
-    fused_cp = _resolve_fused_cp(fused_cp, cp_params)
-    fused_talker = _resolve_fused_talker(fused_talker, talker_params)
-    kw = dict(
-        talker_cfg=talker_cfg, cp_cfg=cp_cfg, max_frames=max_frames,
-        kv_capacity=kv_capacity, temperature=temperature, top_k=top_k,
-        top_p=top_p, repetition_penalty=repetition_penalty, nothink=nothink,
-        fused_cp=fused_cp, fused_talker=fused_talker, allow_eos=allow_eos,
-        kv_quant=kv_quant, greedy=greedy, use_top_p=use_top_p)
-    if budgets is not None:
-        kw["budgets"] = budgets
-    if fused_cp or fused_talker:
-        from ..parallel.kernel_safety import dp_kernel_mesh, params_mesh
-
-        mesh = dp_kernel_mesh(talker_params, cp_params, tokens.shape[0])
-        if mesh is not None:
-            return _generate_batched_shard_map(
-                mesh, talker_params, cp_params, tokens, n_tokens,
-                speaker_embd, language_id, keys, kw)
-        if params_mesh(talker_params) is not None:
-            # replicated weights on a multi-device mesh but no usable dp
-            # slicing (no dp axis / batch % dp != 0): a bare jit would hand
-            # possibly-dp-sharded lane tensors to pallas_call — fall back
-            kw["fused_cp"] = kw["fused_talker"] = False
     return _generate_from_tokens_batched_jit(
         talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id,
-        keys, **kw)
-
-
-def _generate_batched_shard_map(mesh, talker_params, cp_params, tokens,
-                                n_tokens, speaker_embd, language_id, keys, kw):
-    """Run the kernel-enabled batched loop under shard_map over the mesh's
-    "dp" axis: weights replicated (in_spec P()), every per-lane tensor split
-    on dim 0, so each device traces the single-device Pallas kernels on its
-    local B/dp lanes. Embarrassingly parallel — no collectives inside; the
-    out specs reassemble the global batch."""
-    from jax.sharding import PartitionSpec as _P
-
-    rep, dp = _P(), _P("dp")
-    body = functools.partial(_generate_from_tokens_batched_jit, **kw)
-    mapped = jax.jit(jax.shard_map(
-        body, mesh=mesh,
-        in_specs=(rep, rep, dp, dp, dp, dp, dp),
-        # no cross-device values inside (embarrassingly parallel) and
-        # pallas_call outputs carry no varying-mesh-axes annotation
-        out_specs=dp, check_vma=False))
-    # NB jit-of-shard_map, not eager: eager shard_map executes per-shard
-    # Python dispatches, and interpret-mode pallas buffer callbacks
-    # deadlock across the 8 CPU-mesh shard threads (observed hang in
-    # _allocate_buffer); one compiled program also matches how the real
-    # dp deployment would run.
-    return mapped(talker_params, cp_params, tokens, n_tokens, speaker_embd,
-                  language_id, keys)
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=(
-        "talker_cfg", "cp_cfg", "max_frames", "kv_capacity", "top_k",
-        "nothink", "fused_cp", "fused_talker", "allow_eos", "kv_quant",
-        "greedy", "use_top_p",
-    ),
-)
-def _generate_from_tokens_batched_jit(
-    talker_params,
-    cp_params,
-    tokens: jnp.ndarray,        # [B, Tb]
-    n_tokens: jnp.ndarray,      # [B]
-    speaker_embd: jnp.ndarray,  # [B, H]
-    language_id: jnp.ndarray,   # [B]
-    keys: jax.Array,            # [B] PRNG keys (jax.random.split output)
-    *,
-    talker_cfg: TalkerConfig,
-    cp_cfg: CodePredictorConfig,
-    max_frames: int,
-    kv_capacity: int,
-    temperature: float,
-    top_k: int,
-    top_p: float = 1.0,
-    repetition_penalty: float = 1.05,
-    nothink: bool = False,
-    fused_cp="auto",
-    fused_talker="auto",
-    allow_eos: bool = True,
-    kv_quant: str = "none",
-    greedy: bool = False,
-    use_top_p: bool = True,
-    budgets: jnp.ndarray | None = None,   # [B] per-lane frame caps (traced)
-) -> GenerateResult:
-    """Batched multi-utterance generation (BASELINE.json config #5): vmap over
-    the full prefill+frame loop. Under vmap the while_loop runs until every
-    utterance hits EOS or the frame budget; finished lanes mask their
-    emissions. Shard the batch axis over the mesh's "dp" axis and the params
-    over "tp" (parallel/shardings.py) for multi-chip serving.
-
-    With EITHER fused kernel available (TPU; any sampling config; B <= 64),
-    a hand-batched loop replaces pure vmap: the batched cp kernel (int8)
-    reads the cp weights once per FRAME-SET instead of 15x, the v3 batched
-    talker kernel streams its weights once for all lanes, and all lanes
-    advance through each AR step together. On the bf16 tier the cp side
-    falls back to a vmapped XLA predict_codes inside the same loop."""
-    B = tokens.shape[0]
-    # The hand-batched loop engages when EITHER kernel is available (bf16
-    # tier: v3 batched talker kernel + vmapped XLA code predictor); past the
-    # lane cap the vmapped path at least shares its buffers with XLA's
-    # allocator.
-    if ((_resolve_fused_cp(fused_cp, cp_params)
-         or _resolve_fused_talker(fused_talker, talker_params))
-            and B <= _BATCHED_FUSED_MAX_LANES):
-        return _generate_batched_fused(
-            talker_params, cp_params, tokens, n_tokens, speaker_embd,
-            language_id, keys, talker_cfg=talker_cfg, cp_cfg=cp_cfg,
-            max_frames=max_frames, kv_capacity=kv_capacity,
-            temperature=temperature, top_k=top_k, top_p=top_p,
-            repetition_penalty=repetition_penalty, nothink=nothink,
-            fused_cp=fused_cp, fused_talker=fused_talker, allow_eos=allow_eos,
-            kv_quant=kv_quant, greedy=greedy, use_top_p=use_top_p,
-            budgets=budgets)
-
-    def one(tokens_i, n_i, spk_i, lang_i, key_i, budget_i):
-        prefill = talker_model.build_prefill(
-            talker_params, talker_cfg, tokens_i, n_i, spk_i, lang_i, nothink=nothink)
-        return generate(
-            talker_params, cp_params, talker_cfg, cp_cfg, prefill, key_i,
-            max_frames=max_frames, kv_capacity=kv_capacity,
-            temperature=temperature, top_k=top_k, top_p=top_p,
-            repetition_penalty=repetition_penalty, fused_cp=False,
-            fused_talker=False, allow_eos=allow_eos, kv_strategy="carried",
-            greedy=greedy, use_top_p=use_top_p, budget=budget_i)
-
-    if budgets is None:
-        budgets_v = jnp.full((B,), max_frames, jnp.int32)
-    else:
-        budgets_v = jnp.asarray(budgets, jnp.int32)
-    return jax.vmap(one)(tokens, n_tokens, speaker_embd, language_id, keys,
-                         budgets_v)
+        keys, budgets, talker_cfg=talker_cfg, cp_cfg=cp_cfg,
+        max_frames=max_frames, kv_capacity=kv_capacity,
+        temperature=temperature, top_k=top_k, top_p=top_p,
+        repetition_penalty=repetition_penalty, nothink=nothink,
+        allow_eos=allow_eos, greedy=greedy, use_top_p=use_top_p,
+        attn_kernel=not spans_devices(talker_params, cp_params, tokens, keys))
 
 
 class _BatchedState(NamedTuple):
     it: jnp.ndarray          # scalar iteration counter (== n_past - prefill)
     n_past: jnp.ndarray      # scalar: lockstep across lanes (fixed prefill)
-    logits: jnp.ndarray      # [B, Vc] ([0] when the kernel samples cb0)
-    cb0_next: jnp.ndarray    # [B] next frame's cb0 ([0] unless kernel-sampled)
+    logits: jnp.ndarray      # [B, Vc]
     last_hidden: jnp.ndarray  # [B, H]
     kv: jnp.ndarray          # [B, L, 2, Hkv, C, D]
     seen: jnp.ndarray        # [B, Vc]
@@ -682,34 +312,73 @@ class _BatchedState(NamedTuple):
     done: jnp.ndarray        # [B]
 
 
-def _generate_batched_fused(
-    talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id,
-    keys, *, talker_cfg, cp_cfg, max_frames, kv_capacity, temperature, top_k,
-    top_p, repetition_penalty, nothink, fused_cp=True,
-    fused_talker="auto", allow_eos=True,
-    kv_quant="none", greedy=None, use_top_p=None, budgets=None,
+@functools.partial(
+    jax.jit,
+    static_argnames=(
+        "talker_cfg", "cp_cfg", "max_frames", "kv_capacity", "top_k",
+        "nothink", "allow_eos", "greedy", "use_top_p", "attn_kernel",
+    ),
+)
+def _generate_from_tokens_batched_jit(
+    talker_params,
+    cp_params,
+    tokens: jnp.ndarray,        # [B, Tb]
+    n_tokens: jnp.ndarray,      # [B]
+    speaker_embd: jnp.ndarray,  # [B, H]
+    language_id: jnp.ndarray,   # [B]
+    keys: jax.Array,            # [B] PRNG keys (jax.random.split output)
+    budgets: jnp.ndarray | None,   # [B] per-lane frame caps (traced)
+    *,
+    talker_cfg: TalkerConfig,
+    cp_cfg: CodePredictorConfig,
+    max_frames: int,
+    kv_capacity: int,
+    temperature: float,
+    top_k: int,
+    top_p: float,
+    repetition_penalty: float,
+    nothink: bool,
+    allow_eos: bool,
+    greedy: bool,
+    use_top_p: bool,
+    attn_kernel: bool,
 ) -> GenerateResult:
-    """Hand-batched frame loop: per-lane semantics identical to the vmapped
-    path (emission masking, latched EOS), but the code predictor runs as ONE
-    batched Pallas kernel per frame-set. n_past is a shared scalar because
-    the prefill window length is fixed; finished lanes keep stepping (their
-    outputs are masked), matching vmap-of-while_loop cost semantics.
+    """Batched multi-utterance generation (BASELINE.json config #5).
 
-    Every lane carries its OWN key chain, split exactly like the
-    single-stream loop (key -> key, k_cb0, k_cp per frame), and the fused cp
-    kernel takes per-lane seeds with lane-decomposable counter-hash noise —
-    so a sampled batched run reproduces single-stream sampled output
-    lane-for-lane given the same keys (VERDICT r1 #8)."""
-    from ..ops.pallas_code_predictor_batched import fused_predict_codes_batched
+    All lanes advance through each AR step together: n_past is a shared
+    scalar because the prefill window length is fixed, and the loop runs
+    until every lane is done (finished lanes keep stepping with masked
+    emissions). Per-lane semantics equal the single-stream loop: every lane
+    carries its own key chain, split exactly like generate()'s body (key ->
+    key, k_cb0, k_cp per frame), so lane b reproduces
+    generate_from_tokens(keys[b]).
 
+    One loop with a scalar exit condition rather than vmap over generate():
+    a vmapped while_loop with a per-lane predicate selects every carried
+    buffer (the whole KV cache) per step. Shard the batch axis over the
+    mesh's "dp" axis and the params over "tp" (parallel/shardings.py) for
+    multi-device serving."""
+    with kernel_allowed(attn_kernel):
+        return _generate_batched(
+            talker_params, cp_params, tokens, n_tokens, speaker_embd,
+            language_id, keys, budgets, talker_cfg=talker_cfg, cp_cfg=cp_cfg,
+            max_frames=max_frames, kv_capacity=kv_capacity,
+            temperature=temperature, top_k=top_k, top_p=top_p,
+            repetition_penalty=repetition_penalty, nothink=nothink,
+            allow_eos=allow_eos, greedy=greedy, use_top_p=use_top_p)
+
+
+def _generate_batched(
+    talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id,
+    keys, budgets, *, talker_cfg, cp_cfg, max_frames, kv_capacity,
+    temperature, top_k, top_p, repetition_penalty, nothink, allow_eos,
+    greedy, use_top_p,
+) -> GenerateResult:
     B = tokens.shape[0]
     H = talker_cfg.hidden_size
     Vc = talker_cfg.codec_vocab_size
     suppress_start = Vc - talker_cfg.n_suppressed_tail
     dtype = talker_params.codec_embd.dtype
-    greedy, use_top_p = sampling_flags(temperature, top_p, greedy, use_top_p)
-
-    use_fused_cp = _resolve_fused_cp(fused_cp, cp_params)
 
     prefill = jax.vmap(
         lambda t, n, sp, lg: talker_model.build_prefill(
@@ -722,40 +391,12 @@ def _generate_batched_fused(
     last_hidden, logits, kv = jax.vmap(
         lambda pe: talker_model.talker_prefill(talker_params, talker_cfg, pe, kv0)
     )(prefill.prefill_embd)
-    use_fused_talker = _resolve_fused_talker(fused_talker, talker_params)
-    # opt-in lane-major cache [L, 2, Hkv, C, B, D] for the batched fused
-    # kernel: each per-trip (kv, head) DMA is one contiguous chunk*B*D run
-    # instead of B strided 8 KB blocks. Measured (B=64 C=512): wins at
-    # shallow history (3.42 vs 3.70 ms/frame-set over steps 0..100), loses
-    # at deep (7.29 vs 7.06 over 0..400), e2e serving a wash (7734 vs 7750
-    # aggregate f/s) — so batch-major stays the default; int8 KV requires it
-    # (the scale slab's lane dim pins the layout).
-    lane_kv = (use_fused_talker and kv_quant != "int8"
-               and _os.environ.get("QWEN3TTS_BATCHED_KV_LAYOUT", "batch") == "lane")
-    if kv_quant == "int8" and use_fused_talker:
-        from ..ops.kv_quant import quantize_kv
-
-        kv = quantize_kv(kv)
-    elif lane_kv:
-        kv = kv.transpose(1, 2, 3, 4, 0, 5)
-
-    # kernel-sampled cb0: the v3 batch-major kernel's head epilogue applies
-    # suppression + repetition penalty + the counter-hash sampler while the
-    # logits are still in VMEM, so the loop carries a [B] cb0 instead of
-    # round-tripping [B, Vc] logits through XLA sampling glue.
     eos_for_mask = talker_cfg.codec_eos_id if allow_eos else -1
-    kernel_cb0 = _resolve_kernel_cb0(use_fused_talker) and not lane_kv
-    logits, cb0_init, keys = _init_cb0(
-        logits, keys, talker_cfg, kernel_cb0=kernel_cb0,
-        temperature=temperature, top_k=top_k, top_p=top_p,
-        repetition_penalty=repetition_penalty, allow_eos=allow_eos,
-        greedy=greedy, use_top_p=use_top_p)
 
     state = _BatchedState(
         it=jnp.int32(0),
         n_past=jnp.int32(prefill_len),
         logits=logits,
-        cb0_next=cb0_init,
         last_hidden=last_hidden,
         kv=kv,
         seen=jnp.zeros((B, Vc), jnp.bool_),
@@ -770,53 +411,31 @@ def _generate_batched_fused(
         # per-lane key chains, split exactly like the single-stream body
         ks = jax.vmap(lambda k: jax.random.split(k, 3))(s.keys)   # [B, 3, ...]
         keys_next, k_cb0, k_cp = ks[:, 0], ks[:, 1], ks[:, 2]
-        if kernel_cb0:
-            cb0 = s.cb0_next
-        else:
-            l = apply_suppression(s.logits, suppress_start, eos_for_mask)
-            l = apply_repetition_penalty(l, s.seen, repetition_penalty)
-            cb0 = jax.vmap(
-                lambda kk, row: sample_token(
-                    kk, row, temperature=temperature, top_k=top_k,
-                    top_p=top_p, greedy=greedy, use_top_p=use_top_p)
-            )(k_cb0, l)
+        l = apply_suppression(s.logits, suppress_start, eos_for_mask)
+        l = apply_repetition_penalty(l, s.seen, repetition_penalty)
+        cb0 = jax.vmap(
+            lambda kk, row: sample_token(
+                kk, row, temperature=temperature, top_k=top_k,
+                top_p=top_p, greedy=greedy, use_top_p=use_top_p)
+        )(k_cb0, l)
         done = jnp.logical_or(
             s.done, jnp.logical_and(cb0 == talker_cfg.codec_eos_id, allow_eos))
         emit = ~done
 
-        # one-hot matmul instead of a per-lane row gather: 64 dynamic-slice
-        # gathers from the [Vc, H] table lower poorly; [B, Vc] @ [Vc, H] is
-        # one small MXU dot
+        # one-hot matmul instead of a per-lane row gather of the [Vc, H]
+        # table (exact: one nonzero term per row)
         onehot_cb0 = (cb0[:, None] == jnp.arange(Vc)[None, :])
         cb0_embd = jax.lax.dot_general(
             onehot_cb0.astype(dtype), talker_params.codec_embd,
             (((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32).astype(dtype)   # [B, H]
-        if use_fused_cp:
-            seeds = jax.vmap(lambda kk: lax.bitcast_convert_type(
-                jax.random.bits(kk, (), "uint32"), jnp.int32))(k_cp)   # [B]
-            # above the kernel's VMEM lane cap, run it in <=64-lane chunks
-            # (weights re-read per chunk — only worth it past 64 lanes)
-            hidden_in = s.last_hidden.astype(dtype)
-            outs = [fused_predict_codes_batched(
-                cp_params, cp_cfg, hidden_in[o:o + _CP_KERNEL_MAX_LANES],
-                cb0_embd[o:o + _CP_KERNEL_MAX_LANES],
-                seeds[o:o + _CP_KERNEL_MAX_LANES],
-                temperature=temperature, top_k=top_k, top_p=top_p,
-                greedy=greedy, use_top_p=use_top_p)
-                for o in range(0, B, _CP_KERNEL_MAX_LANES)]
-            rest = jnp.concatenate([r for r, _ in outs], axis=0)
-            rest_sum = jnp.concatenate([rs for _, rs in outs], axis=0)
-        else:
-            # unquantized (bf16) tier: XLA code predictor, vmapped with each
-            # lane's k_cp — identical key usage to the single-stream XLA path
-            rest = jax.vmap(
-                lambda h, ce, kk: cp_model.predict_codes(
-                    cp_params, cp_cfg, h, ce, kk, temperature=temperature,
-                    top_k=top_k, top_p=top_p, greedy=greedy,
-                    use_top_p=use_top_p)
-            )(s.last_hidden.astype(dtype), cb0_embd, k_cp)           # [B, 15]
-            rest_sum = _rest_embd_sum(cp_params, cp_cfg, rest)       # [B, H]
+        rest = jax.vmap(
+            lambda h, ce, kk: cp_model.predict_codes(
+                cp_params, cp_cfg, h, ce, kk, temperature=temperature,
+                top_k=top_k, top_p=top_p, greedy=greedy,
+                use_top_p=use_top_p)
+        )(s.last_hidden.astype(dtype), cb0_embd, k_cp)           # [B, 15]
+        rest_sum = _rest_embd_sum(cp_params, cp_cfg, rest)       # [B, H]
         frame_codes = jnp.concatenate([cb0[:, None], rest], axis=1)
 
         # lanes are LOCKSTEP (frame[b] == it for every never-done lane), so
@@ -849,50 +468,13 @@ def _generate_batched_fused(
         step_embd = (cb0_embd.astype(jnp.float32) + rest_sum
                      + trailing_row).astype(dtype)
 
-        if kernel_cb0:
-            # v3 batched kernel + cb0-sampling epilogue: next frame's cb0 is
-            # sampled in-kernel (seeded by this body's k_cb0) against the
-            # seen-set INCLUDING this frame's cb0 — same visibility the XLA
-            # path gives the next body iteration.
-            from ..ops.pallas_talker_step import fused_talker_step_batched
-
-            seeds_cb0 = jax.vmap(lambda kk: lax.bitcast_convert_type(
-                jax.random.bits(kk, (), "uint32"), jnp.int32))(k_cb0)
-            hidden_f32, cb0_next, kv = fused_talker_step_batched(
-                talker_params.blocks, talker_cfg, step_embd, s.n_past, s.kv,
-                output_norm=talker_params.output_norm,
-                codec_head=talker_params.codec_head,
-                seen=seen, seeds=seeds_cb0,
-                temperature=temperature, top_p=top_p,
-                repetition_penalty=repetition_penalty, top_k=top_k,
-                suppress_start=suppress_start, eos_id=eos_for_mask,
-                greedy=greedy, use_top_p=use_top_p)
-            hidden = hidden_f32.astype(dtype)
-            logits = s.logits
-        elif use_fused_talker:
-            # v3 batched kernel: weights streamed once for ALL lanes (M=B
-            # int8 MXU dots), per-lane valid-prefix KV DMA, VPU flash
-            # attention. Measured 18.4 -> 3.7 ms/frame-set at B=64, C=512
-            # vs the vmapped XLA step (hidden cosine 0.9998).
-            from ..ops.pallas_talker_step import fused_talker_step_batched
-
-            hidden_f32, logits, kv = fused_talker_step_batched(
-                talker_params.blocks, talker_cfg, step_embd, s.n_past, s.kv,
-                output_norm=talker_params.output_norm,
-                codec_head=talker_params.codec_head,
-                kv_layout="lane" if lane_kv else "batch")
-            hidden = hidden_f32.astype(dtype)
-            cb0_next = s.cb0_next
-        else:
-            # "carried" KV strategy: under vmap the sliced scheme's per-layer
-            # cache copies multiply by B (measured 893 -> 2555 aggregate f/s
-            # at B=16, C=512 from this alone)
-            hidden, logits, kv = jax.vmap(
-                lambda e, kvi: talker_model.talker_step(
-                    talker_params, talker_cfg, e, s.n_past, kvi,
-                    strategy="carried")
-            )(step_embd, s.kv)
-            cb0_next = s.cb0_next
+        # "carried" KV strategy: under vmap the sliced scheme's per-layer
+        # cache copies multiply by B
+        hidden, logits, kv = jax.vmap(
+            lambda e, kvi: talker_model.talker_step(
+                talker_params, talker_cfg, e, s.n_past, kvi,
+                strategy="carried")
+        )(step_embd, s.kv)
 
         frame_new = s.frame + emit.astype(jnp.int32)
         if budgets is not None:
@@ -906,7 +488,6 @@ def _generate_batched_fused(
             it=s.it + 1,
             n_past=s.n_past + 1,
             logits=logits,
-            cb0_next=cb0_next,
             last_hidden=hidden,
             kv=kv,
             seen=seen,
@@ -934,11 +515,8 @@ def _generate_batched_fused(
 
 @functools.partial(
     jax.jit,
-    static_argnames=(
-        "talker_cfg", "cp_cfg", "max_frames", "kv_capacity", "nothink",
-        "fused_talker", "kv_quant", "top_k", "allow_eos", "greedy",
-        "use_top_p",
-    ),
+    static_argnames=("talker_cfg", "cp_cfg", "max_frames", "kv_capacity",
+                     "nothink"),
 )
 def generate_init(
     talker_params,
@@ -954,84 +532,40 @@ def generate_init(
     max_frames: int,
     kv_capacity: int,
     nothink: bool = False,
-    fused_talker="auto",
-    kv_quant: str = "none",
-    temperature=1.0,
-    top_k: int = 50,
-    top_p=1.0,
-    repetition_penalty=1.05,
-    allow_eos: bool = True,
-    greedy: bool = False,
-    use_top_p: bool = True,
 ):
     """Build prefill inputs, run the talker prefill, return (state, prefill)
-    ready for generate_chunk. kv_quant/fused_talker AND the sampling params
-    must match what the subsequent generate_chunk calls use (the state's KV
-    representation is fixed here, and with the fused talker active frame 0's
-    cb0 is sampled here — see _init_cb0)."""
-    H = talker_cfg.hidden_size
-    Vc = talker_cfg.codec_vocab_size
-    dtype = talker_params.codec_embd.dtype
+    ready for generate_chunk."""
     prefill = talker_model.build_prefill(
         talker_params, talker_cfg, tokens, n_tokens, speaker_embd, language_id,
         nothink=nothink)
-    kv = talker_model.make_kv_cache(talker_cfg, kv_capacity, dtype)
-    last_hidden, logits, kv = talker_model.talker_prefill(
-        talker_params, talker_cfg, prefill.prefill_embd, kv)
-    if kv_quant == "int8" and _resolve_fused_talker(fused_talker, talker_params):
-        from ..ops.kv_quant import quantize_kv
-
-        kv = quantize_kv(kv)
-    logits, cb0_next, key = _init_cb0(
-        logits, key, talker_cfg,
-        kernel_cb0=_resolve_kernel_cb0(
-            _resolve_fused_talker(fused_talker, talker_params)),
-        temperature=temperature, top_k=top_k, top_p=top_p,
-        repetition_penalty=repetition_penalty, allow_eos=allow_eos,
-        greedy=greedy, use_top_p=use_top_p)
-    state = _LoopState(
-        frame=jnp.int32(0),
-        n_past=jnp.int32(prefill.prefill_embd.shape[0]),
-        logits=logits,
-        cb0_next=cb0_next,
-        last_hidden=last_hidden,
-        kv=kv,
-        seen=jnp.zeros((Vc,), jnp.bool_),
-        codes=jnp.zeros((max_frames, talker_cfg.n_codebooks), jnp.int32),
-        hidden_out=jnp.zeros((max_frames, H), dtype),
-        key=key,
-        done=jnp.bool_(False),
-    )
+    state = _init_state(talker_params, talker_cfg, prefill, key,
+                        max_frames=max_frames, kv_capacity=kv_capacity)
     return state, prefill
 
 
 def generate_chunk(
     talker_params, cp_params, prefill, state, *, talker_cfg, cp_cfg,
     chunk_frames, max_frames, temperature, top_k, top_p=1.0,
-    repetition_penalty=1.05, allow_eos=True, fused_cp="auto",
-    fused_talker="auto", greedy=None, use_top_p=None,
+    repetition_penalty=1.05, allow_eos=True, greedy=None, use_top_p=None,
 ) -> _LoopState:
     """Advance the decode loop by up to chunk_frames emitted frames. The
     state is donated (the KV cache updates in place across chunks); read
     state.frame/state.done/state.codes between chunks. Sampling params are
-    traced; stage flags and the sharding-aware kernel gates derived here."""
+    traced; stage flags derived here."""
     greedy, use_top_p = sampling_flags(temperature, top_p, greedy, use_top_p)
-    fused_cp = _resolve_fused_cp(fused_cp, cp_params)
-    fused_talker = _resolve_fused_talker(fused_talker, talker_params)
     return _generate_chunk_jit(
         talker_params, cp_params, prefill, state, talker_cfg=talker_cfg,
         cp_cfg=cp_cfg, chunk_frames=chunk_frames, max_frames=max_frames,
         temperature=temperature, top_k=top_k, top_p=top_p,
         repetition_penalty=repetition_penalty, allow_eos=allow_eos,
-        fused_cp=fused_cp, fused_talker=fused_talker, greedy=greedy,
-        use_top_p=use_top_p)
+        greedy=greedy, use_top_p=use_top_p)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "talker_cfg", "cp_cfg", "chunk_frames", "max_frames", "top_k",
-        "allow_eos", "fused_cp", "fused_talker", "greedy", "use_top_p",
+        "allow_eos", "greedy", "use_top_p",
     ),
     donate_argnames=("state",),
 )
@@ -1050,8 +584,6 @@ def _generate_chunk_jit(
     top_p: float,
     repetition_penalty: float,
     allow_eos: bool,
-    fused_cp,
-    fused_talker,
     greedy: bool,
     use_top_p: bool,
 ) -> _LoopState:
@@ -1059,8 +591,7 @@ def _generate_chunk_jit(
         talker_params, cp_params, talker_cfg, cp_cfg, prefill,
         temperature=temperature, top_k=top_k, top_p=top_p,
         repetition_penalty=repetition_penalty, progress_cb=None,
-        allow_eos=allow_eos, fused_cp=fused_cp, fused_talker=fused_talker,
-        greedy=greedy, use_top_p=use_top_p)
+        allow_eos=allow_eos, greedy=greedy, use_top_p=use_top_p)
     target = jnp.minimum(state.frame + chunk_frames, max_frames)
 
     def cond(s: _LoopState):
@@ -1073,31 +604,25 @@ def generate_start(
     talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id,
     key, *, talker_cfg, cp_cfg, chunk_frames, max_frames, kv_capacity,
     temperature, top_k, top_p=1.0, repetition_penalty=1.05, nothink=False,
-    allow_eos=True, fused_cp="auto", fused_talker="auto", kv_quant="none",
-    greedy=None, use_top_p=None,
+    allow_eos=True, greedy=None, use_top_p=None,
 ):
     """Prefill + the FIRST chunk in one dispatch (time-to-first-audio path).
-    Sampling params traced; stage flags and the sharding-aware kernel gates
-    derived here."""
+    Sampling params traced; stage flags derived here."""
     greedy, use_top_p = sampling_flags(temperature, top_p, greedy, use_top_p)
-    fused_cp = _resolve_fused_cp(fused_cp, cp_params)
-    fused_talker = _resolve_fused_talker(fused_talker, talker_params)
     return _generate_start_jit(
         talker_params, cp_params, tokens, n_tokens, speaker_embd, language_id,
         key, talker_cfg=talker_cfg, cp_cfg=cp_cfg, chunk_frames=chunk_frames,
         max_frames=max_frames, kv_capacity=kv_capacity,
         temperature=temperature, top_k=top_k, top_p=top_p,
         repetition_penalty=repetition_penalty, nothink=nothink,
-        allow_eos=allow_eos, fused_cp=fused_cp, fused_talker=fused_talker,
-        kv_quant=kv_quant, greedy=greedy, use_top_p=use_top_p)
+        allow_eos=allow_eos, greedy=greedy, use_top_p=use_top_p)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
         "talker_cfg", "cp_cfg", "chunk_frames", "max_frames", "kv_capacity",
-        "top_k", "nothink", "allow_eos", "fused_cp", "fused_talker",
-        "kv_quant", "greedy", "use_top_p",
+        "top_k", "nothink", "allow_eos", "greedy", "use_top_p",
     ),
 )
 def _generate_start_jit(
@@ -1120,53 +645,21 @@ def _generate_start_jit(
     repetition_penalty: float,
     nothink: bool,
     allow_eos: bool,
-    fused_cp,
-    fused_talker,
-    kv_quant: str,
     greedy: bool,
     use_top_p: bool,
 ):
     """Prefill + the FIRST chunk in one dispatch (time-to-first-audio path:
     one device round-trip instead of two before the first vocoder call)."""
-    H = talker_cfg.hidden_size
-    Vc = talker_cfg.codec_vocab_size
-    dtype = talker_params.codec_embd.dtype
     prefill = talker_model.build_prefill(
         talker_params, talker_cfg, tokens, n_tokens, speaker_embd, language_id,
         nothink=nothink)
-    kv = talker_model.make_kv_cache(talker_cfg, kv_capacity, dtype)
-    last_hidden, logits, kv = talker_model.talker_prefill(
-        talker_params, talker_cfg, prefill.prefill_embd, kv)
-    if kv_quant == "int8" and _resolve_fused_talker(fused_talker, talker_params):
-        from ..ops.kv_quant import quantize_kv
-
-        kv = quantize_kv(kv)
-    logits, cb0_next, key = _init_cb0(
-        logits, key, talker_cfg,
-        kernel_cb0=_resolve_kernel_cb0(
-            _resolve_fused_talker(fused_talker, talker_params)),
-        temperature=temperature, top_k=top_k, top_p=top_p,
-        repetition_penalty=repetition_penalty, allow_eos=allow_eos,
-        greedy=greedy, use_top_p=use_top_p)
-    state = _LoopState(
-        frame=jnp.int32(0),
-        n_past=jnp.int32(prefill.prefill_embd.shape[0]),
-        logits=logits,
-        cb0_next=cb0_next,
-        last_hidden=last_hidden,
-        kv=kv,
-        seen=jnp.zeros((Vc,), jnp.bool_),
-        codes=jnp.zeros((max_frames, talker_cfg.n_codebooks), jnp.int32),
-        hidden_out=jnp.zeros((max_frames, H), dtype),
-        key=key,
-        done=jnp.bool_(False),
-    )
+    state = _init_state(talker_params, talker_cfg, prefill, key,
+                        max_frames=max_frames, kv_capacity=kv_capacity)
     body = _make_body(
         talker_params, cp_params, talker_cfg, cp_cfg, prefill,
         temperature=temperature, top_k=top_k, top_p=top_p,
         repetition_penalty=repetition_penalty, progress_cb=None,
-        allow_eos=allow_eos, fused_cp=fused_cp, fused_talker=fused_talker,
-        greedy=greedy, use_top_p=use_top_p)
+        allow_eos=allow_eos, greedy=greedy, use_top_p=use_top_p)
     target = jnp.minimum(jnp.int32(chunk_frames), max_frames)
 
     def cond(s: _LoopState):

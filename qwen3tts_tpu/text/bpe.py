@@ -16,7 +16,6 @@ from __future__ import annotations
 
 import json
 import os
-import re
 from typing import Dict, List, Tuple
 
 
@@ -37,9 +36,9 @@ def bytes_to_unicode() -> Dict[int, str]:
 _BYTE_TO_UNI = bytes_to_unicode()
 _UNI_TO_BYTE = {v: k for k, v in _BYTE_TO_UNI.items()}
 
-# Qwen2 pre-tokenization pattern. The exact pattern needs Unicode property
-# classes (\p{L}/\p{N}); use the `regex` module when available and fall back
-# to a stdlib-`re` approximation otherwise.
+# Qwen2 pre-tokenization pattern. It needs Unicode property classes
+# (\p{L}/\p{N}), which only the `regex` module has; without it the qwen2
+# split is refused (TextTokenizer raises) rather than approximated.
 try:
     import regex as _regex
 
@@ -47,11 +46,7 @@ try:
         r"""(?i:'s|'t|'re|'ve|'m|'ll|'d)|[^\r\n\p{L}\p{N}]?\p{L}+|\p{N}|"""
         r""" ?[^\s\p{L}\p{N}]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+""")
 except ImportError:
-    _QWEN2_SPLIT = re.compile(
-        r"""'(?:[sdmt]|ll|ve|re)|[^\r\n0-9\W]+|[0-9]{1,3}|"""
-        r""" ?[^\s\w0-9]+[\r\n]*|\s*[\r\n]+|\s+(?!\S)|\s+""",
-        re.UNICODE,
-    )
+    _QWEN2_SPLIT = None
 
 
 class TextTokenizer:
@@ -67,6 +62,10 @@ class TextTokenizer:
         self.vocab = dict(vocab)
         self.id_to_token = {i: t for t, i in self.vocab.items()}
         self.bpe_ranks = {pair: i for i, pair in enumerate(merges)}
+        if pretokenize == "qwen2" and _QWEN2_SPLIT is None:
+            raise ImportError(
+                "pretokenize='qwen2' needs the `regex` package (Unicode "
+                "\\p{L}/\\p{N} classes); install it or use 'space'")
         self.pretokenize = pretokenize
         self._cache: Dict[str, List[str]] = {}
 

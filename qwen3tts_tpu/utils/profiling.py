@@ -1,10 +1,10 @@
-"""Kernel-level tracing (the TPU-native replacement for the reference's
-compile-time QWEN3_TTS_TIMING instrumentation, SURVEY.md §5).
+"""Kernel-level tracing (the replacement for the reference's compile-time
+QWEN3_TTS_TIMING instrumentation, SURVEY.md §5).
 
 The reference wraps every scheduler call in std::chrono and prints a per-frame
 breakdown table; under jit there is no per-op host boundary to time, so the
 canonical artifact is a ``jax.profiler`` trace viewable in XProf/TensorBoard
-(per-kernel HLO timings, HBM traffic, fusion views).
+(per-kernel device timings, fusion views).
 
     from qwen3tts_tpu.utils.profiling import trace
     with trace("/tmp/qwen3tts-trace"):
@@ -25,14 +25,8 @@ import jax
 def trace(log_dir: str, *, host_tracer_level: int = 2):
     """Profile the enclosed block to ``log_dir`` (TensorBoard/XProf format)."""
     options = jax.profiler.ProfileOptions()
-    try:
-        options.host_tracer_level = host_tracer_level
-    except Exception:
-        options = None
-    if options is not None:
-        jax.profiler.start_trace(log_dir, profiler_options=options)
-    else:  # older jax
-        jax.profiler.start_trace(log_dir)
+    options.host_tracer_level = host_tracer_level
+    jax.profiler.start_trace(log_dir, profiler_options=options)
     try:
         yield
     finally:

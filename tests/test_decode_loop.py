@@ -1,4 +1,4 @@
-"""End-to-end greedy generation parity: fused on-device loop vs NumPy ref.
+"""End-to-end greedy generation parity: the on-device loop vs NumPy ref.
 
 The strongest correctness check available without real weights: with identical
 synthetic float32 weights, the jitted lax.while_loop generate() must emit the
@@ -133,16 +133,17 @@ def test_start_and_vocode_single_dispatch():
     assert np.isfinite(np.asarray(audio)).all()
 
 
-def test_chunked_kernel_cb0_matches_one_shot(params):
-    """Streaming with the fused talker + in-kernel cb0 sampling: the state
-    hand-off (cb0_next carried across generate_init -> generate_chunk
-    dispatch boundaries) must reproduce the one-shot fused run exactly,
-    sampled mode (interpret on CPU)."""
+@pytest.mark.parametrize("quant", [False, True])
+def test_chunked_sampled_matches_one_shot(params, quant):
+    """Streaming: the loop state handed across generate_init ->
+    generate_chunk dispatch boundaries must reproduce the one-shot run
+    exactly, sampled mode, plain and int8 weights."""
     tp, cp = params
-    from qwen3tts_tpu.ops.quant import quantize_block_params
+    if quant:
+        from qwen3tts_tpu.ops.quant import quantize_block_params
 
-    tpq = tp._replace(blocks=quantize_block_params(tp.blocks))
-    cpq = cp._replace(blocks=quantize_block_params(cp.blocks))
+        tp = tp._replace(blocks=quantize_block_params(tp.blocks))
+        cp = cp._replace(blocks=quantize_block_params(cp.blocks))
     Tb, maxF, KV = 16, 4, 32
     tokens = np.zeros((Tb,), np.int32)
     tokens[:12] = np.arange(2, 14)
@@ -153,17 +154,16 @@ def test_chunked_kernel_cb0_matches_one_shot(params):
                 repetition_penalty=1.05)
 
     one_shot = DL.generate_from_tokens(
-        tpq, cpq, *args, talker_cfg=TCFG, cp_cfg=CCFG, max_frames=maxF,
-        kv_capacity=KV, fused_cp=True, fused_talker=True, **samp)
+        tp, cp, *args, talker_cfg=TCFG, cp_cfg=CCFG, max_frames=maxF,
+        kv_capacity=KV, **samp)
 
     state, prefill = DL.generate_init(
-        tpq, cpq, *args, talker_cfg=TCFG, cp_cfg=CCFG, max_frames=maxF,
-        kv_capacity=KV, fused_talker=True, **samp)
+        tp, cp, *args, talker_cfg=TCFG, cp_cfg=CCFG, max_frames=maxF,
+        kv_capacity=KV)
     while not bool(state.done) and int(state.frame) < maxF:
         state = DL.generate_chunk(
-            tpq, cpq, prefill, state, talker_cfg=TCFG, cp_cfg=CCFG,
-            chunk_frames=2, max_frames=maxF, fused_cp=True,
-            fused_talker=True, **samp)
+            tp, cp, prefill, state, talker_cfg=TCFG, cp_cfg=CCFG,
+            chunk_frames=2, max_frames=maxF, **samp)
     assert int(state.frame) == int(one_shot.n_frames)
     np.testing.assert_array_equal(np.asarray(state.codes),
                                   np.asarray(one_shot.codes))
@@ -218,3 +218,80 @@ def test_batched_budgets_truncate_exactly(params):
         np.testing.assert_array_equal(
             np.asarray(capped.codes[b, : budgets[b]]),
             np.asarray(full.codes[b, : budgets[b]]))
+
+
+def _lanes(B, Tb=16, seed=3):
+    rng = np.random.default_rng(seed)
+    tokens = np.zeros((B, Tb), np.int32)
+    n_tok = rng.integers(10, Tb, size=B).astype(np.int32)
+    for b in range(B):
+        tokens[b, : n_tok[b]] = rng.integers(2, 90, size=n_tok[b])
+    return tokens, n_tok
+
+
+@pytest.mark.parametrize("tier", ["f32", "int8"])
+@pytest.mark.parametrize("sampling", [
+    dict(temperature=0.0, top_k=0),
+    dict(temperature=0.9, top_k=5),
+    dict(temperature=0.8, top_k=50, top_p=0.7),
+])
+def test_batched_loop_matches_single_stream(params, tier, sampling):
+    """Lane b of the batched loop (shared write column, one-hot cb0
+    embedding, vmapped predictor and carried talker step, per-lane key
+    chains) emits exactly generate_from_tokens(keys[b])'s codes and frame
+    count — greedy and sampled, with EOS live."""
+    tp, cp = params
+    if tier == "int8":
+        from qwen3tts_tpu.ops.quant import quantize_block_params
+
+        tp = tp._replace(blocks=quantize_block_params(tp.blocks))
+        cp = cp._replace(blocks=quantize_block_params(cp.blocks))
+    B, maxF, KV = 3, 6, 32
+    tokens, n_tok = _lanes(B)
+    keys = jax.random.split(jax.random.PRNGKey(11), B)
+    kw = dict(talker_cfg=TCFG, cp_cfg=CCFG, max_frames=maxF, kv_capacity=KV,
+              repetition_penalty=1.05, **sampling)
+    speaker = np.zeros((B, TCFG.hidden_size), np.float32)
+    batched = DL.generate_from_tokens_batched(
+        tp, cp, jnp.asarray(tokens), jnp.asarray(n_tok), jnp.asarray(speaker),
+        jnp.full((B,), 2050, jnp.int32), keys, **kw)
+    for b in range(B):
+        one = DL.generate_from_tokens(
+            tp, cp, jnp.asarray(tokens[b]), jnp.int32(n_tok[b]),
+            jnp.asarray(speaker[b]), jnp.int32(2050), keys[b], **kw)
+        assert int(batched.n_frames[b]) == int(one.n_frames)
+        np.testing.assert_array_equal(np.asarray(batched.codes[b]),
+                                      np.asarray(one.codes), err_msg=f"lane {b}")
+        np.testing.assert_allclose(np.asarray(batched.hidden[b]),
+                                   np.asarray(one.hidden), rtol=1e-5, atol=1e-5)
+
+
+def test_batched_rest_embedding_sum_matches_single(params):
+    """_rest_embd_sum over [B, 15] codes == per-lane [15] sums."""
+    _, cp = params
+    rest = jnp.asarray(np.random.default_rng(0).integers(
+        0, CCFG.vocab_size, size=(4, CCFG.n_steps)), jnp.int32)
+    got = DL._rest_embd_sum(cp, CCFG, rest)
+    for b in range(4):
+        np.testing.assert_allclose(np.asarray(got[b]),
+                                   np.asarray(DL._rest_embd_sum(cp, CCFG, rest[b])),
+                                   rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("temperature", [0.0, 0.9])
+def test_vmapped_predictor_lane_equals_single(params, temperature):
+    """The batched loop vmaps predict_codes with each lane's key; lane b
+    must equal the single-stream call with that key."""
+    from qwen3tts_tpu.models import code_predictor as cp_model
+
+    tp, cp = params
+    rng = np.random.default_rng(1)
+    h = jnp.asarray(rng.normal(size=(3, CCFG.hidden_size)), jnp.float32)
+    e = tp.codec_embd[jnp.asarray([4, 77, 1500])]
+    keys = jax.random.split(jax.random.PRNGKey(2), 3)
+    kw = dict(temperature=temperature, top_k=20)
+    got = jax.vmap(lambda hh, ee, kk: cp_model.predict_codes(
+        cp, CCFG, hh, ee, kk, **kw))(h, e, keys)
+    for b in range(3):
+        one = cp_model.predict_codes(cp, CCFG, h[b], e[b], keys[b], **kw)
+        np.testing.assert_array_equal(np.asarray(got[b]), np.asarray(one))

@@ -122,18 +122,22 @@ def test_sharded_continuous_serving_matches_unsharded(params, dp, tp_size):
         np.testing.assert_array_equal(b, g)
 
 
-@pytest.mark.parametrize("quant", ["int8", "w4"])
+@pytest.mark.parametrize("quant", ["int8", "w4", "q4"])
 def test_sharded_quantized_generation_matches_unsharded(params, quant):
-    """Production int8/w4 configurations must shard too (VERDICT r1 #7):
-    QuantLinear and QuantLinear4 leaves take the matrix spec on q and scales,
-    with non-dividing scale dims falling back to replicated."""
+    """Production int8/w4 configurations must shard too: QuantLinear and
+    QuantLinear4 leaves take the matrix spec on q and scales, with
+    non-dividing scale dims falling back to replicated. q4 is the shipped
+    mixed tier (attention int8, FFN u4; the code predictor stays int8)."""
     from qwen3tts_tpu.ops.quant import (
-        quantize_block_params, quantize_block_params_w4)
+        quantize_block_params, quantize_block_params_mixed,
+        quantize_block_params_w4)
 
     tp_params, cp_params = params
-    qfn = quantize_block_params if quant == "int8" else quantize_block_params_w4
+    qfn = {"int8": quantize_block_params, "w4": quantize_block_params_w4,
+           "q4": quantize_block_params_mixed}[quant]
     tq = tp_params._replace(blocks=qfn(tp_params.blocks))
-    cq = cp_params._replace(blocks=qfn(cp_params.blocks))
+    cq = cp_params._replace(blocks=(quantize_block_params if quant == "q4"
+                                    else qfn)(cp_params.blocks))
 
     mesh = mesh_mod.make_mesh(2, 2)
     B = 2
@@ -172,3 +176,52 @@ def test_tp_sharding_actually_distributes(params):
     shard_shapes = {s.data.shape for s in tps.blocks.wqkv.addressable_shards}
     L, H, O = tp_params.blocks.wqkv.shape
     assert shard_shapes == {(L, H, O // 4)}
+
+
+def test_batched_vocoder_under_dp_mesh():
+    """The serving vocoder over dp-sharded lanes (replicated weights) equals
+    the unsharded batched vocoder and stays finite."""
+    from qwen3tts_tpu.models import vocoder as V
+
+    vcfg = CFG.vocoder
+    vp = V.init_vocoder_params(jax.random.PRNGKey(3), vcfg, jnp.float32)
+    codes = jax.random.randint(jax.random.PRNGKey(4), (4, 8, vcfg.n_codebooks),
+                               0, vcfg.codebook_size)
+    n = jnp.asarray([8, 5, 3, 8], jnp.int32)
+    decode = jax.jit(jax.vmap(lambda p, c, k: V.vocoder_forward(p, vcfg, c, k),
+                              in_axes=(None, 0, 0)))
+    base = np.asarray(decode(vp, codes, n))
+    mesh = mesh_mod.make_mesh(4, 1)
+    dsh = NamedSharding(mesh, P("dp"))
+    got = np.asarray(decode(jax.device_put(vp, NamedSharding(mesh, P())),
+                            jax.device_put(codes, dsh), jax.device_put(n, dsh)))
+    assert np.isfinite(got).all()
+    # one lane per device against four lanes in one program: f32 sums run
+    # in another order, and Snake amplifies the rounding (~1.5e-4 seen)
+    np.testing.assert_allclose(got, base, rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("placement,want", [
+    ("local", True), ("params_replicated", False), ("lanes_sharded", False)])
+def test_mesh_programs_leave_out_the_kernel(params, monkeypatch, placement, want):
+    """generate_from_tokens_batched allows the decode-attention kernel only
+    when nothing spans several devices (pallas_call has no partitioning
+    rule)."""
+    tp_params, cp_params = params
+    tokens, n_tok, speaker, lang, keys = _batch_inputs(2)
+    tokens = jnp.asarray(tokens)
+    mesh = mesh_mod.make_mesh(2, 1)
+    if placement == "params_replicated":
+        tp_params = jax.device_put(tp_params, NamedSharding(mesh, P()))
+    elif placement == "lanes_sharded":
+        tokens = jax.device_put(tokens, NamedSharding(mesh, P("dp")))
+    seen = {}
+
+    def spy(*args, **kw):
+        seen.update(kw)
+
+    monkeypatch.setattr(DL, "_generate_from_tokens_batched_jit", spy)
+    DL.generate_from_tokens_batched(
+        tp_params, cp_params, tokens, jnp.asarray(n_tok), jnp.asarray(speaker),
+        jnp.asarray(lang), keys, **KW)
+    assert seen["attn_kernel"] is want

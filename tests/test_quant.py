@@ -3,7 +3,6 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from qwen3tts_tpu.config import tiny_pipeline_config, SamplingConfig
 from qwen3tts_tpu.ops import quant
@@ -158,27 +157,3 @@ def test_w4_pipeline_end_to_end():
     assert r.success, r.error_msg
     assert len(r.audio) == r.n_frames * 1920
     assert np.isfinite(np.asarray(r.audio)).all()
-
-
-def test_pallas_int8_matmul_matches_xla():
-    from qwen3tts_tpu.ops.pallas_int8_matmul import int8_matmul_pallas
-    rng = np.random.default_rng(5)
-    M, K, N = 3, 256, 384
-    x = jnp.asarray(rng.normal(size=(M, K)), jnp.float32)
-    q = jnp.asarray(rng.integers(-127, 128, size=(K, N)), jnp.int8)
-    scale = jnp.asarray(np.abs(rng.normal(size=(1, N))) * 0.01, jnp.float32)
-    got = int8_matmul_pallas(x, q, scale, interpret=True)
-    want = (x @ q.astype(jnp.float32)) * scale
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=1e-5, atol=1e-5)
-
-
-def test_pallas_int8_matmul_bf16():
-    from qwen3tts_tpu.ops.pallas_int8_matmul import int8_matmul_pallas
-    rng = np.random.default_rng(6)
-    M, K, N = 1, 512, 512
-    x = jnp.asarray(rng.normal(size=(M, K)), jnp.bfloat16)
-    q = jnp.asarray(rng.integers(-127, 128, size=(K, N)), jnp.int8)
-    scale = jnp.asarray(np.abs(rng.normal(size=(1, N))) * 0.01, jnp.float32)
-    got = np.asarray(int8_matmul_pallas(x, q, scale, interpret=True), np.float32)
-    want = np.asarray((x @ q.astype(jnp.bfloat16)).astype(jnp.float32) * scale)
-    np.testing.assert_allclose(got, want, rtol=2e-2, atol=2e-2)

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
-"""Hardware A/B of the batched-vocode matmul precision tier.
+"""On-card A/B of the batched-vocode matmul precision tier.
 
-Round-3 hardware showed the f32-pinned vmapped vocoder is 80-90% of batched
-serving e2e wall (decode 2.1 s vs vocode ~8-16 s at B=64x256f), not "a tiny
-fraction" as assumed when r2 pinned it. This measures, for each precision in
+The batched vocoder runs at float32 matmul precision by default
+(pipeline._vocode_precision). This measures, for each precision in
 {float32, BF16_BF16_F32_X3, default}:
 
   quality: vmapped-16 output vs the f32-truth reference (unbatched, precision
@@ -40,10 +39,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache"))
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from qwen3tts_tpu.pipeline import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from qwen3tts_tpu.config import PipelineConfig
 from qwen3tts_tpu.models import vocoder as V

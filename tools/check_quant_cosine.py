@@ -8,9 +8,8 @@ The reference's own accuracy bar is prefill-logits cosine (README.md:259,
 0.99999994 for F16). Gates: int8 near-lossless (>0.99); q4 must match the
 reference's own Q4_K storage format quality on the same weights — measured
 0.9238 for an exact Q4_K roundtrip vs 0.9205 for this build's affine
-per-32-group format (docs/performance.md has the full table; no pure 4-bit
-scheme reaches 0.99 on iid-Gaussian synthetic weights, the bound is the
-format class, not the kernels).
+per-32-group format (no pure 4-bit scheme reaches 0.99 on iid-Gaussian
+synthetic weights; the bound is the format class, not the kernels).
 
     python tools/check_quant_cosine.py
 """
@@ -28,10 +27,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR",
-                      os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", ".jax_cache"))
-jax.config.update("jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"])
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+from qwen3tts_tpu.pipeline import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 from qwen3tts_tpu.config import PipelineConfig
 from qwen3tts_tpu.models import talker as talker_model

@@ -3,7 +3,7 @@
 
 Counterpart of the reference's scripts/convert_tts_to_gguf.py and
 scripts/convert_tokenizer_to_gguf.py, built on this framework's own GGUF
-writer (no gguf-py dependency). The TPU pipeline loads HF safetensors
+writer (no gguf-py dependency). The JAX pipeline loads HF safetensors
 directly; this tool exists for interchange with GGUF-based runtimes and for
 producing the Q8_0-parity artifacts.
 

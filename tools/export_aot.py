@@ -1,9 +1,9 @@
 #!/usr/bin/env python
 """AOT-export the compiled stage programs with jax.export.
 
-The TPU-native analog of the reference's CoreML exporter (component #12,
+The analog of the reference's CoreML exporter (component #12,
 SURVEY.md §2 — scripts/convert_code_predictor_to_coreml.py): where the
-reference re-builds the code predictor for Apple's ANE, the TPU deployment
+reference re-builds the code predictor for Apple's ANE, the deployment
 artifact is the serialized StableHLO of each jitted stage program, loadable
 in a serving process without retracing Python.
 

@@ -5,7 +5,7 @@ goldens, warmup AOT compile).
 Counterpart of the reference's scripts/setup_pipeline_models.py (component
 #13, SURVEY.md §2): repo fallback list, --force/--skip-download, and instead
 of a CoreML export step (Apple-only), an optional AOT export of the compiled
-TPU programs (tools/export_aot.py).
+programs (tools/export_aot.py).
 
     python tools/setup_models.py --dest models/ [--gguf f16 q8_0] [--goldens]
 """
